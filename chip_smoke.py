@@ -1,0 +1,318 @@
+#!/usr/bin/env python3
+"""Smoke run of tokenmonster_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from csrc/, holds each against its plain PyTorch
+version at the main path's shapes (realtext-32000, chunk 2048, 512 lanes,
+two forward-delete rows; a capcode-0 vocabulary for the one-row match and
+decide), drives the main path ``load(vocab, device="cuda").tokenize(text)``
+over at least 4 MiB of real text and a mixed batch, checks the ids against
+the native host tokenizer, shows the counted host fallback, and times each
+kernel beside its plain version, the staged device chain, the end-to-end
+call and the native tokenizer.
+
+Phases print as they go; any failure raises and exits non-zero.  The line
+before the last is a JSON object of the kernels; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
+repository around it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+VOCAB = os.path.join("examples", "realtext-32000-fast.vocab")
+CHUNK, LANES = 2048, 512
+MAIN_BYTES = 4 << 20          # raw text bytes of the main-path run
+REPEAT = 5                    # timings are the median of this many runs
+TPU_KERNELS = {               # the Pallas kernel each CUDA kernel replaces
+    "match": "tokenmonster_tpu/ops/pallas_match.py:136",
+    "decide": "tokenmonster_tpu/ops/pallas_decide.py:83",
+    "follow": "tokenmonster_tpu/ops/pallas_follow.py:45",
+    "compact": "tokenmonster_tpu/ops/pallas_stitch.py:34",
+}
+SOURCE = "tokenmonster_tpu_torch/csrc/tm_kernels.cu"
+
+
+def phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def fnv1a64(ids) -> int:
+    """FNV-1a over the little-endian u32 id stream."""
+    h = 0xCBF29CE484222325
+    for b in np.asarray(ids, np.uint32).astype("<u4").tobytes():
+        h = ((h ^ b) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+def cuda_ms(fn, repeat: int = REPEAT, calls: int = 10) -> float:
+    """Milliseconds per call of ``fn`` on the card: CUDA events around
+    ``calls`` back-to-back calls, median of ``repeat`` such runs, after one
+    warm-up call.  A call shorter than its host-side launch cost measures
+    that cost."""
+    fn()
+    times = []
+    for _ in range(repeat):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def host_seconds(fn, repeat: int = REPEAT) -> float:
+    """Median wall seconds of ``fn`` ending in a card synchronise."""
+    times = []
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def max_abs_err(got, want) -> int:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want):
+        require(g.shape == w.shape, f"shape {tuple(g.shape)} vs "
+                                    f"{tuple(w.shape)}")
+        err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def stage_pairs(vocab, raw: bytes, device, downstream: bool):
+    """One main-path dispatch (512 lanes of 2048 bytes) of real text and,
+    for each kernel on its path, (kernel call, plain call) closures on the
+    same inputs.  ``downstream`` adds follow and compact, which need the
+    dispatch to sync."""
+    from tokenmonster_tpu_torch.corpus import main_dispatch
+    from tokenmonster_tpu_torch.ops import stitch
+    from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
+    from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
+    from tokenmonster_tpu_torch.ops.match import match, match_plain
+    from tokenmonster_tpu_torch.ops.scan import OVERLAP_SCAN
+    tk, buf, n = main_dispatch(vocab, raw, device, CHUNK, LANES)
+    tabs = tk.tables
+    mm = match(buf, n, tabs)
+    m, mb = mm if tabs.has_space else (mm, None)
+    pairs = {
+        "match": (lambda: match(buf, n, tabs),
+                  lambda: match_plain(buf, n, tabs)),
+        "decide": (lambda: decide(m, mb, buf, n, tabs),
+                   lambda: decide_plain(m, mb, buf, n, tabs)),
+    }
+    if not downstream:
+        return buf.numel(), pairs
+    ctl, tok = decide(m, mb, buf, n, tabs)
+    t_rec = tk._t_rec(False)
+    recs, toks, done = follow(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec)
+    require(int(done) == 1, "main-path dispatch overflowed its window")
+    _f, keep, _sn, ok, s, e = stitch.stitched_keep(recs, 0, LANES - 2, False)
+    require(bool(ok), "main-path dispatch did not sync")
+    counts = keep.sum(0)
+    q = (counts.cumsum(0) - counts - s).to(torch.int32)
+    s, e = s.to(torch.int32), e.clamp(max=t_rec - 1).to(torch.int32)
+    cap = t_rec * LANES
+    pairs["follow"] = (
+        lambda: follow(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec),
+        lambda: follow_plain(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec))
+    pairs["compact"] = (
+        lambda: stitch.compact(recs, toks, s, e, q, cap),
+        lambda: stitch.compact_plain(recs, toks, s, e, q, cap))
+    return buf.numel(), pairs
+
+
+def compare(pairs, name: str) -> int:
+    kernel, plain = pairs[name]
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    return max_abs_err(got, want)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
+        return 1
+
+    phase("device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} devices "
+          f"{torch.cuda.device_count()}")
+    dev = torch.device("cuda", 0)
+
+    import tokenmonster_tpu_torch as tt
+    from tokenmonster_tpu.core.vocab import Vocab
+    from tokenmonster_tpu.native import NativeVocab
+    from tokenmonster_tpu_torch.corpus import one_row_vocab, stdlib_text
+    from tokenmonster_tpu_torch.ops import _build
+    require("jax" not in sys.modules, "the port imported jax")
+
+    phase("build")
+    t0 = time.perf_counter()
+    cached = os.path.exists(_build.library_path())
+    _build.load_library()
+    print(f"kernels built in {time.perf_counter() - t0:.3f} s "
+          f"({'reused' if cached else 'compiled'} {_build.library_path()})")
+
+    phase("kernels against plain versions (tolerance 0)")
+    core = Vocab.load(VOCAB)
+    raw, dropped = stdlib_text(core, MAIN_BYTES)
+    require(len(raw) >= MAIN_BYTES, f"only {len(raw)} bytes of text")
+    errs = {}
+    N, pairs = stage_pairs(core, raw, dev, downstream=True)
+    for name in TPU_KERNELS:
+        errs[name] = compare(pairs, name)
+        print(f"{name}: realtext-32000 two rows, N={N}, {LANES} lanes x "
+              f"{CHUNK}: max_abs_err {errs[name]}")
+    N1, pairs1 = stage_pairs(one_row_vocab(core), raw, dev, downstream=False)
+    for name in pairs1:
+        err = compare(pairs1, name)
+        print(f"{name}: capcode-0 one row, N={N1}: max_abs_err {err}")
+        errs[name] = max(errs[name], err)
+    require(not any(errs.values()), f"kernels disagree: {errs}")
+
+    phase("main path: load(...).tokenize on real text")
+    print(f"text: {len(raw)} bytes of standard-library files, {dropped} "
+          f"lines dropped for bytes the vocabulary lacks")
+    vocab = tt.load(VOCAB, device="cuda")
+    nv = NativeVocab(core)
+    norm = core.normalize(raw)
+    want, wmiss = nv.tokenize(norm)
+    _build.reset_launches()
+    ids = vocab.tokenize(raw)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    require(vocab.last_route == "device",
+            f"the call took the {vocab.last_route} route")
+    tk = vocab._tpu
+    print(f"route {vocab.last_route}, launches {launches}, last_mode "
+          f"{tk.last_mode}, fallbacks {tk.fallbacks}, dispatches "
+          f"{len(tk._plan(len(norm))[1])}")
+    ids32 = np.asarray(ids, np.uint32)
+    require(np.array_equal(ids32, want), "ids differ from native")
+    h_got, h_want = fnv1a64(ids32), fnv1a64(want)
+    print(f"{len(ids32)} ids, fnv1a64 {h_got:016x} (native {h_want:016x})")
+    require(h_got == h_want, "fnv differs from native")
+    _ids, missing = tk.tokenize(norm)
+    require(missing == 0 == wmiss, f"missing {missing}, native {wmiss}")
+    require(tk.host_fallbacks == 0, "the device path fell back to the host")
+    require(all(launches[k] > 0 for k in TPU_KERNELS),
+            f"a kernel was not launched: {launches}")
+
+    sizes = (3 << 20, 64 << 10, 5 << 19, 500)
+    lines = raw.splitlines(keepends=True)
+    batch_raw = []
+    for i, size in enumerate(sizes):   # whole lines: a cut character
+        item, at = [], 1000 * i        # would be a byte the vocab lacks
+        while sum(map(len, item)) < size:
+            item.append(lines[at])
+            at += 1
+        batch_raw.append(b"".join(item))
+    vocab.route = "device"      # every item, small ones too, on the card
+    before = dict(vocab.route_counts)
+    _build.reset_launches()
+    batch = vocab.tokenize(batch_raw)
+    batch_launches = dict(_build.launches)
+    require(vocab.route_counts["device"] == before["device"] + len(sizes),
+            f"a batch item took another route: {vocab.route_counts}")
+    require(tk.host_fallbacks == 0, "a batch item fell back")
+    for item, got in zip(batch_raw, batch):
+        w, _m = nv.tokenize(core.normalize(item))
+        require(np.array_equal(np.asarray(got, np.uint32), w),
+                f"batch item of {len(item)} bytes differs from native")
+    require(all(batch_launches[k] >= len(sizes) for k in TPU_KERNELS),
+            f"a batch item skipped a kernel: {batch_launches}")
+    print(f"batch of {len(sizes)} "
+          f"({', '.join(str(len(b)) for b in batch_raw)} bytes) "
+          f"equals native; launches {batch_launches}")
+
+    phase("counted host fallback")
+    short = b"a byte the vocabulary lacks: \x01 here"
+    fids = vocab.tokenize(short)
+    wf, wfm = nv.tokenize(core.normalize(short))
+    require(vocab.last_route == "device", "the short text was not routed "
+                                          "to the device path")
+    require(tk.fallbacks == {"missing_byte": 1, "junction": 0},
+            f"fallbacks {tk.fallbacks}, expected one missing_byte")
+    require(np.array_equal(np.asarray(fids, np.uint32), wf) and wfm > 0,
+            "fallback ids differ from native")
+    print(f"fallbacks {tk.fallbacks}, last_mode {tk.last_mode}, "
+          f"{len(fids)} ids equal native, native missing {wfm}")
+
+    phase(f"times on {card} (median of {REPEAT} runs)")
+    kernels = []
+    for name in TPU_KERNELS:
+        kernel, plain = pairs[name]
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, calls=1)
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(N={N}, {LANES} lanes) [{card}]")
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+                        "replaces": TPU_KERNELS[name],
+                        "launches": launches[name],
+                        "max_abs_err": errs[name], "ms": ms,
+                        "plain_ms": plain_ms})
+    staged = tk.stage(norm)
+    tk.tokenize_staged(staged)
+    chain_s = host_seconds(lambda: tk._run_staged(staged))
+    print(f"device chain: {len(norm) / chain_s / 1e6:.3f} MB/s over "
+          f"{len(norm)} normalized bytes ({chain_s * 1e3:.3f} ms) [{card}]")
+    e2e = []
+    before = vocab.route_counts["device"]
+    for _ in range(REPEAT):                 # route pinned to "device"
+        t0 = time.perf_counter()
+        vocab.tokenize(raw)
+        e2e.append(time.perf_counter() - t0)
+    require(vocab.route_counts["device"] == before + REPEAT,
+            "a timed call did not take the device route")
+    require(tk.fallbacks["missing_byte"] == 1
+            and tk.fallbacks["junction"] == 0, "a timed call fell back")
+    e2e_s = statistics.median(e2e)
+    print(f"e2e load().tokenize: {len(raw) / e2e_s / 1e6:.3f} MB/s over "
+          f"{len(raw)} raw bytes ({e2e_s * 1e3:.3f} ms, normalization and "
+          f"id download included) [{card}]")
+    nat = []
+    for _ in range(REPEAT):
+        t0 = time.perf_counter()
+        nv.tokenize(norm)
+        nat.append(time.perf_counter() - t0)
+    nat_s = statistics.median(nat)
+    print(f"native: {len(norm) / nat_s / 1e6:.3f} MB/s over {len(norm)} "
+          f"normalized bytes, {os.cpu_count()} host threads [{card}]")
+
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

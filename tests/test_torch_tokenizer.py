@@ -1,0 +1,161 @@
+"""The slice as a whole: GpuTokenizer(device="cpu") — the plain versions of
+the four kernels plus the PyTorch stitch and chaining — against the JAX
+TpuTokenizer (Pallas engine, interpret mode), the host oracle and the
+native tokenizer.  Ids and missing counts must be equal (tolerance 0)."""
+
+import numpy as np
+import pytest
+import torch
+
+from tokenmonster_tpu.core.tokenizer import tokenize as host_tokenize
+from tokenmonster_tpu.core.vocab import Vocab, normalize_and_capcode
+from tokenmonster_tpu.native import NativeVocab
+from tokenmonster_tpu.ops.scan import TpuTokenizer
+from tokenmonster_tpu_torch.ops import scan, stitch
+from tokenmonster_tpu_torch.ops.scan import GpuTokenizer
+
+from torch_cases import ENGLISH, VOCABS, realtext_vocab, text_for
+
+
+def _native(v, data):
+    ids, missing = NativeVocab(v).tokenize(data)
+    return np.asarray(ids, np.uint32), missing
+
+
+@pytest.mark.parametrize("name", sorted(VOCABS))
+def test_tokenizer_equals_jax_oracle_native(name):
+    v = VOCABS[name]()
+    data = text_for(name, v, 3000, seed=8, misses=name == "unk")
+    tk = GpuTokenizer(v, chunk=64, device="cpu")
+    ids, missing = tk.tokenize(data)
+    assert tk.last_mode == "fast" and tk.host_fallbacks == 0
+    want, wmiss = host_tokenize(v, data)
+    np.testing.assert_array_equal(ids, np.asarray(want, np.uint32))
+    assert missing == wmiss
+    if name == "unk":
+        assert missing > 0
+    nids, nmiss = _native(v, data)
+    np.testing.assert_array_equal(ids, nids)
+    assert missing == nmiss
+    jids, jmiss = TpuTokenizer(v, chunk=64).tokenize(data)
+    np.testing.assert_array_equal(ids, np.asarray(jids, np.uint32))
+    assert missing == jmiss
+
+
+def test_multi_dispatch_bridges():
+    """Chunk 32 and more than 512 lanes: three chained dispatches, each
+    splicing onto the previous one's bridge lane."""
+    v = VOCABS["capcode"]()
+    data = text_for("capcode", v, 40000, seed=9, misses=False)
+    tk = GpuTokenizer(v, chunk=32, device="cpu")
+    L, plan = tk._plan(len(data))
+    assert L == 512 and len(plan) == 3
+    ids, missing = tk.tokenize(data)
+    assert tk.last_mode == "fast" and tk.host_fallbacks == 0
+    nids, nmiss = _native(v, data)
+    np.testing.assert_array_equal(ids, nids)
+    assert missing == nmiss == 0
+
+
+def test_dense_text_full_window_retry():
+    """About one record per byte overflows the fast record window; the
+    full-window retry syncs (unk vocabulary: misses still emit)."""
+    v = VOCABS["unk"]()
+    data = (b"q\x01u\x02i\x03c\x04k\x05" * 800)[:3000]
+    tk = GpuTokenizer(v, chunk=2048, device="cpu")
+    ids, missing = tk.tokenize(data)
+    assert tk.last_mode == "full" and tk.host_fallbacks == 0
+    want, wmiss = host_tokenize(v, data)
+    np.testing.assert_array_equal(ids, np.asarray(want, np.uint32))
+    assert missing == wmiss > 1000
+
+
+@pytest.mark.parametrize("name", ["capcode", "plain"])
+def test_missing_byte_without_unk_falls_back(name):
+    """A byte the vocabulary lacks, with no unk token: no device variant
+    syncs, the text goes to the native tokenizer, counted; ids exact."""
+    v = VOCABS[name]()
+    data = text_for(name, v, 2000, seed=10, misses=True)
+    tk = GpuTokenizer(v, chunk=64, device="cpu")
+    ids, missing = tk.tokenize(data)
+    assert tk.host_fallbacks == 1 and tk.last_mode == "host"
+    assert tk.fallbacks == {"missing_byte": 1, "junction": 0}
+    want, wmiss = host_tokenize(v, data)
+    np.testing.assert_array_equal(ids, np.asarray(want, np.uint32))
+    assert missing == wmiss > 0
+
+
+def test_junction_without_shared_state_falls_back():
+    """Chains that stay out of phase: "x" then a run of "a" with tokens
+    "aa" and "a" puts lane 0's tokens at odd offsets and every other lane's
+    at even ones, so no junction finds a shared state.  The data forces
+    the fallback; it is counted apart from missing bytes."""
+    v = Vocab()
+    v._generate(tokens=[b"aa", b"a", b"x"], charset=1,
+                normalize_string="none", using_capcode=0, level=5,
+                reset_token_ids=True)
+    data = b"x" + b"a" * 3000
+    tk = GpuTokenizer(v, chunk=64, device="cpu")
+    ids, missing = tk.tokenize(data)
+    assert tk.fallbacks == {"missing_byte": 0, "junction": 1}
+    assert tk.last_mode == "host"
+    nids, nmiss = _native(v, data)
+    np.testing.assert_array_equal(ids, nids)
+    assert missing == nmiss == 0
+    jids, jmiss = TpuTokenizer(v, chunk=64).tokenize(data)
+    np.testing.assert_array_equal(ids, np.asarray(jids, np.uint32))
+
+
+def test_full_window_overflow_raises(monkeypatch):
+    """The full window holds one record per scanned byte, so a lane that
+    overflows it is a kernel fault: it raises, never falls back."""
+    v = VOCABS["capcode"]()
+    data = text_for("capcode", v, 3000, seed=11, misses=False)
+    tk = GpuTokenizer(v, chunk=2048, device="cpu")
+    monkeypatch.setattr(tk, "_t_rec", lambda full: 128)
+    with pytest.raises(RuntimeError, match="full record window"):
+        tk.tokenize(data)
+    assert tk.host_fallbacks == 0
+
+
+def test_silent_record_without_missing_byte_raises(monkeypatch):
+    """A kept record that emits nothing where the text has no byte the
+    vocabulary lacks (here: an unk vocabulary) is a kernel fault."""
+    v = VOCABS["unk"]()
+    data = text_for("unk", v, 2000, seed=10, misses=True)
+
+    def no_emit(*args):
+        out = stitch.device_stitch_compact(*args)
+        return (*out[:4], torch.zeros((), dtype=torch.bool), out[5])
+
+    tk = GpuTokenizer(v, chunk=64, device="cpu")
+    monkeypatch.setattr(scan, "device_stitch_compact", no_emit)
+    with pytest.raises(RuntimeError, match="emitted no token"):
+        tk.tokenize(data)
+    assert tk.host_fallbacks == 0
+
+
+def test_realtext_32000_equals_native():
+    v = realtext_vocab(32000)
+    rng = np.random.default_rng(12)
+    words = ENGLISH.split(b" ")
+    raw = b" ".join(words[i] for i in rng.integers(0, len(words), 1500))
+    data = normalize_and_capcode(raw, v.using_capcode, v.normalizer)
+    tk = GpuTokenizer(v, chunk=256, device="cpu")
+    ids, missing = tk.tokenize(data)
+    assert tk.last_mode == "fast" and tk.host_fallbacks == 0
+    nids, nmiss = _native(v, data)
+    np.testing.assert_array_equal(ids, nids)
+    assert missing == nmiss == 0
+    assert len(ids) > 1000
+
+
+def test_empty_and_tiny():
+    v = VOCABS["capcode"]()
+    tk = GpuTokenizer(v, chunk=64, device="cpu")
+    ids, missing = tk.tokenize(b"")
+    assert len(ids) == 0 and missing == 0
+    ids, missing = tk.tokenize(b" hello")
+    want, wmiss = host_tokenize(v, b" hello")
+    np.testing.assert_array_equal(ids, np.asarray(want, np.uint32))
+    assert missing == wmiss

@@ -1,0 +1,151 @@
+"""Shared inputs of the tokenmonster_tpu_torch tests: the vocabularies the
+port is held on, texts for them made from seeded numpy, and the hash-match
+tables both packages are given."""
+
+import os
+
+import numpy as np
+import torch
+
+from tokenmonster_tpu.core.vocab import Vocab, normalize_and_capcode
+from tokenmonster_tpu.ops.hashmatch import build_hashmatch
+from tokenmonster_tpu_torch.ops.decide import decide
+from tokenmonster_tpu_torch.ops.match import match
+from tokenmonster_tpu_torch.ops.tables import space_prefix, upload_tables
+
+OVERLAP = 128     # OVERLAP_SCAN of both packages
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES = os.path.join(ROOT, "examples")
+
+ENGLISH = (
+    b"The quick brown fox jumps over the lazy dog. Pack my box with five "
+    b"dozen liquor jugs. How vexingly quick daft zebras jump! The five "
+    b"boxing wizards jump quickly. Sphinx of black quartz, judge my vow. "
+    b"int main() { printf(\"hello world\\n\"); return 0; } // C code\n"
+    b"def f(x):\n    return x * 2  # python\n"
+)
+
+U16_WORDS = ["jump", "ser", "er", "s", "ing", "box", "vow", "judge", "ge",
+             "in", "rve", "serve", "inger"]
+
+
+def plain_vocab():
+    """Capcode 0, no delete token: the one-row path."""
+    v = Vocab()
+    v._generate(
+        tokens=[b" the", b"the", b" quick", b"quick", b" brown", b" fox",
+                b"he", b"er", b"e", b"t", b" ", b"o", b"x", b" jumps",
+                b" over", b" lazy", b" dog", b"s", b"ing", b"\n", b".",
+                b"q", b"u", b"i", b"c", b"k", b"b", b"r", b"w", b"n"],
+        charset=1, normalize_string="none", using_capcode=0,
+        level=5, reserve=8, reset_token_ids=True)
+    return v
+
+
+def capcode_vocab():
+    """Capcode 2 with a delete token: both forward-delete rows."""
+    v = Vocab()
+    v._generate(
+        tokens=[b" hello", b" world", b"hello", b"hell", b"he", b" he",
+                b" the", b"the", b" quick", b"quick", b" brown", b" fox",
+                b" jump", b"jumps", b" over", b" lazy", b" dog", b"ing",
+                b" box", b" liquor", b" five", b" judge", b" my", b" vow",
+                b"er", b" ju", b"mp", b" zebras", b"s ", b"e ", b"d ",
+                b" return", b"return", b" int", b"int", b" main", b"main",
+                b"() {", b"; }", b" printf", b"(\"", b"\\n\"); ", b" x",
+                b" def", b" f(x):", b"    ", b" * 2", b" #", b" python",
+                b"  ", b"   ", b"    ", b"\n"],
+        charset=1, normalize_string="none", using_capcode=2,
+        level=5, reserve=8, reset_token_ids=True)
+    return v
+
+
+def utf16_vocab():
+    """UTF-16 charset with a delete token: lil_off 2."""
+    def u16(s):
+        return s.encode("utf-16-le")
+    toks = [u16(t) for t in ["jump", " jump", "ser", " ser", "er", " er",
+                             "s", "ing", " box", "boxing", " vow", " jumps",
+                             " judge", "judgeing", " inger", " serve",
+                             "rve", " in", "ge", " ge", "box", "vow",
+                             " vowing"]]
+    singles = [u16(c) for c in "abcdefghijklmnopqrstuvwxyz ."]
+    v = Vocab()
+    v._generate(tokens=toks + singles + [b"\x7f"], charset=2,
+                normalize_string="none", using_capcode=1, level=5,
+                reset_token_ids=True)
+    return v
+
+
+def unk_vocab():
+    """The capcode-0 vocabulary with an unk token: misses emit unk."""
+    v = plain_vocab()
+    assert v.enable_unk_token()
+    return v
+
+
+def realtext_vocab(size: int):
+    return Vocab.load(os.path.join(EXAMPLES, f"realtext-{size}-fast.vocab"))
+
+
+VOCABS = {
+    "plain": plain_vocab,
+    "capcode": capcode_vocab,
+    "utf16": utf16_vocab,
+    "unk": unk_vocab,
+    "realtext1024": lambda: realtext_vocab(1024),
+}
+
+
+def text_for(name: str, vocab, size: int, seed: int = 0,
+             misses: bool = True) -> bytes:
+    """``size`` bytes of normalized text for vocabulary ``name``: English
+    and code pieces drawn with seeded numpy and, with ``misses``, a few
+    control bytes no test vocabulary has (unk emissions for "unk",
+    fallbacks for the vocabularies without unk)."""
+    rng = np.random.default_rng(seed)
+    if name == "utf16":
+        parts = []
+        while sum(map(len, parts)) < size:
+            parts.append(U16_WORDS[rng.integers(len(U16_WORDS))])
+            if rng.random() < 0.5:
+                parts.append(" ")
+        return "".join(parts).encode("utf-16-le")[:size // 2 * 2]
+    words = ENGLISH.split(b" ")
+    parts = []
+    while sum(map(len, parts)) < size + 64:
+        parts.append(words[rng.integers(len(words))])
+    for at in rng.integers(0, len(parts), 3 if misses else 0):
+        parts[at] = parts[at] + b"\x01\x02"
+    raw = b" ".join(parts)
+    if vocab.using_capcode == 0:
+        return raw[:size]
+    return normalize_and_capcode(raw, vocab.using_capcode,
+                                 vocab.normalizer)[:size]
+
+
+def hashmatch_tables(vocab):
+    """The JAX package's match tables for ``vocab`` (one build, shared by
+    both packages in a test)."""
+    return build_hashmatch(vocab.tokens, space_prefix=space_prefix(vocab))
+
+
+def decisions(name, n_bytes, N, misses=True):
+    """(ctl, tok) int32 decision words of a seeded text, via the port's
+    match and decide stages (held equal to the JAX ones elsewhere)."""
+    v = VOCABS[name]()
+    dt = upload_tables(v, hashmatch_tables(v), "cpu")
+    data = text_for(name, v, n_bytes, seed=4, misses=misses)
+    buf = torch.zeros(N, dtype=torch.uint8)
+    buf[:len(data)] = torch.tensor(list(data), dtype=torch.uint8)
+    n = len(data)
+    if dt.has_space:
+        m, mb = match(buf, n, dt)
+    else:
+        m, mb = match(buf, n, dt), None
+    ctl, tok = decide(m, mb, buf, n, dt)
+    return ctl, tok, n
+
+
+def u32(t):
+    return t.numpy().view(np.uint32)

@@ -1,0 +1,175 @@
+"""Build, load and launch the hand-written CUDA kernels (``csrc/``).
+
+nvcc compiles ``csrc/tm_kernels.cu`` for ``sm_90a`` into one shared
+library with a plain C interface, at first use, into
+``build/tokenmonster_tpu_torch/<hash>/`` under the repository root.  The
+hash covers every source in ``csrc/`` and the compiler flags, so an edited
+source builds anew and an unchanged one is reused.  The library is loaded
+with ctypes; each kernel takes one argument struct, mirrored here by a
+``ctypes.Structure`` (the C side is ``csrc/tm_kernels.cuh``).
+
+Nothing here runs at import time: importing the package needs neither
+nvcc nor a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build",
+                          "tokenmonster_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+
+
+class MatchArgs(ctypes.Structure):
+    _fields_ = [("text", _P), ("fields", _P), ("disp", _P), ("single", _P),
+                ("space_single", _P), ("scalars", _P), ("desc", _P),
+                ("len_cls", _P), ("ovf_keys", _P), ("m", _P), ("mb", _P),
+                ("N", _I64), ("n", _I32), ("max_len", _I32),
+                ("idx1_bits", _I32), ("has_space", _I32), ("lil_off", _I32),
+                ("pad_", _I32)]
+
+
+class DecideArgs(ctypes.Structure):
+    _fields_ = [("m", _P), ("mb", _P), ("text", _P), ("meta", _P),
+                ("bb", _P), ("ctl", _P), ("tok", _P), ("N", _I64),
+                ("meta_stride", _I64), ("n", _I32), ("has_delete", _I32),
+                ("has_unk", _I32), ("unk_token", _I32), ("lil_off", _I32),
+                ("pad_", _I32)]
+
+
+class FollowArgs(ctypes.Structure):
+    _fields_ = [("ctl", _P), ("tok", _P), ("recs", _P), ("toks", _P),
+                ("done_all", _P), ("N", _I64), ("rows", _I32), ("n", _I32),
+                ("chunk", _I32), ("overlap", _I32), ("W", _I32), ("L", _I32),
+                ("t_rec", _I32), ("pad_", _I32)]
+
+
+class CompactArgs(ctypes.Structure):
+    _fields_ = [("recs", _P), ("toks", _P), ("s", _P), ("e", _P), ("q", _P),
+                ("out", _P), ("out_len", _I64), ("T", _I32), ("L", _I32)]
+
+
+KERNELS = ("match", "decide", "follow", "compact")
+
+# Launches of each kernel in this process.  A wrapper adds one where it
+# launches its kernel (launch() below) and nowhere else, so a caller can
+# show that a run went through the kernels: zero the counts, run, read.
+launches = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches():
+    for k in KERNELS:
+        launches[k] = 0
+
+
+def _sources():
+    return sorted(f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _sources():
+        h.update(name.encode() + b"\0")
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    return os.path.join(CUDA_HOME or "", "bin", "nvcc")
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_ROOT, source_hash(), "libtm_kernels.so")
+
+
+def build_library() -> str:
+    """Compile the kernels unless this source hash is built already."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC, "tm_kernels.cu")]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"nvcc not found ({cmd[0]}): the CUDA kernels "
+                           "are built with the CUDA toolkit") from e
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+_lib = None
+_lock = threading.Lock()
+
+
+def load_library():
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_library())
+            for name, struct in (("match", MatchArgs), ("follow", FollowArgs),
+                                 ("compact", CompactArgs)):
+                fn = getattr(lib, f"tm_{name}_launch")
+                fn.argtypes = [ctypes.POINTER(struct), _P]
+                fn.restype = ctypes.c_int
+            lib.tm_decide_launch.argtypes = [ctypes.POINTER(DecideArgs),
+                                             ctypes.c_int, _P]
+            lib.tm_decide_launch.restype = ctypes.c_int
+            lib.tm_error_string.argtypes = [ctypes.c_int]
+            lib.tm_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, args: ctypes.Structure, device: torch.device,
+           *extra) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream; raises if the
+    launch was refused.  Counts the launch."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, f"tm_{name}_launch")(ctypes.byref(args), *extra,
+                                                 stream)
+    if code != 0:
+        msg = lib.tm_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+    launches[name] += 1
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          device: torch.device, shape: tuple | None = None) -> None:
+    """Validate a kernel argument before its pointer is passed."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")

@@ -1,0 +1,219 @@
+"""End-to-end device tokenizer: match -> decide -> follow -> stitch/compact.
+
+Port of ``tokenmonster_tpu/ops/scan.py::TpuTokenizer`` on its Pallas
+engine (``_pallas_stitch_fn``), without the XLA engines and the host
+stitcher.  Text is cut into fixed-geometry dispatches of up to
+``MAX_LANES`` speculative chunk lanes; each lane starts at its chunk with
+state (start, fd = 0) and scans ``OVERLAP_SCAN`` bytes past its chunk, and
+neighbouring lanes splice at their first shared (position, fd) state
+(ops/stitch.py).  Dispatches chain through a bridge lane, carrying the
+record skip ``start_next`` on the device, so a whole text is enqueued with
+no host sync; the host reads the per-dispatch counts once at the end.
+
+A dispatch that overflows the fast record window retries once with the
+full window, which holds one record per scanned byte and so cannot
+overflow (every record advances at least one byte).  Two failures are
+forced by the data and send the text to the exact native host tokenizer:
+a missing byte in a vocabulary without an unk token (a kept record that
+emits nothing; the native tokenizer confirms the missing byte), and a
+junction whose lanes share no state within the overlap (chains that stay
+out of phase, as in long runs of one repeated unit).  Each is counted by
+cause in ``fallbacks`` and logged.  Any other failure is a kernel fault
+and raises.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from tokenmonster_tpu.core.tokenizer import tokenize as host_tokenize
+
+from . import _build
+from .decide import decide, resolve_device
+from .follow import follow
+from .match import match
+from .stitch import device_stitch_compact
+from .tables import upload_tables
+
+OVERLAP_SCAN = 128  # bytes a lane scans past its chunk end to find sync
+MAX_LANES = 512     # lanes per dispatch; longer texts chain dispatches
+MARGIN = 512        # real-data lookahead past a dispatch's exact region:
+                    # the last lane scans OVERLAP_SCAN bytes past its chunk
+                    # end and its matches need up to 2*max_token_length more
+GRAIN = 2048        # dispatch buffers round up to the JAX kernels' tile
+                    # grain, so each stage sees the N the JAX engine sees
+
+_log = logging.getLogger(__name__)
+
+
+def _bucket(n_lanes: int) -> int:
+    """Round a lane count up to a power of two (few distinct geometries)."""
+    b = 1
+    while b < n_lanes:
+        b <<= 1
+    return b
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for "cuda" without a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
+                           "card; pass device='cpu' for the plain PyTorch "
+                           "versions of the kernels")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class GpuTokenizer:
+    """Device tokenizer for a vocabulary on ``device``: CUDA kernels on a
+    CUDA device, their plain PyTorch versions on ``"cpu"``.
+
+    ``launches`` (per kernel, process-wide) and ``last_mode`` ("fast" or
+    "full" record window, or "host" after a fallback) show which path the
+    last call took; ``fallbacks`` counts, by cause ("missing_byte",
+    "junction"), the texts the device path handed to the native tokenizer,
+    and ``host_fallbacks`` is their total."""
+
+    def __init__(self, vocab, chunk: int = 2048, device="cuda"):
+        self.device = device = check_device(device)
+        self.vocab = vocab
+        self.chunk = chunk
+        self.tables = upload_tables(vocab, device=device)
+        self.last_mode = None
+        self.fallbacks = {"missing_byte": 0, "junction": 0}
+
+    @property
+    def launches(self) -> dict:
+        return dict(_build.launches)
+
+    @property
+    def host_fallbacks(self) -> int:
+        return sum(self.fallbacks.values())
+
+    def _t_rec(self, full: bool) -> int:
+        """Record rows per lane: typical text emits about one record per 4
+        bytes (the fast window); the full window covers one per byte.  Same
+        values as the JAX engine, so both take the same retries."""
+        chunk = self.chunk
+        t_rec = (chunk + OVERLAP_SCAN if full
+                 else chunk * 3 // 8 + OVERLAP_SCAN + 64)
+        return -(-t_rec // 128) * 128
+
+    def _plan(self, n: int):
+        """Dispatch plan for ``n`` bytes: (n_lanes, [(off, exact,
+        last_lane)]).  One dispatch when the text fits; otherwise dispatches
+        of MAX_LANES lanes owning (MAX_LANES-1)*chunk bytes each, the last
+        lane of every dispatch re-scanned as the next one's lane 0."""
+        chunk = self.chunk
+        lanes_needed = -(-n // chunk)
+        if lanes_needed <= MAX_LANES:
+            return _bucket(lanes_needed), [(0, n, lanes_needed - 1)]
+        stride = (MAX_LANES - 1) * chunk
+        plan = []
+        for off in range(0, n, stride):
+            exact = min(stride, n - off)
+            plan.append((off, exact, -(-exact // chunk) - 1))
+        return MAX_LANES, plan
+
+    def stage(self, data: bytes):
+        """Upload the dispatch buffers in one copy; returns the staged
+        object ``tokenize_staged`` runs (benchmarks reuse it)."""
+        n = len(data)
+        arr = np.frombuffer(bytes(data), np.uint8)
+        L, plan = self._plan(n)
+        total = L * self.chunk + MARGIN
+        p2 = -(-(total + 64) // GRAIN) * GRAIN
+        host = np.zeros((len(plan), p2), np.uint8)
+        slices = []
+        for i, (off, _exact, last_lane) in enumerate(plan):
+            sl = arr[off:off + total]
+            host[i, :len(sl)] = sl
+            slices.append((len(sl), last_lane))
+        bufs = torch.from_numpy(host).to(self.device)
+        return n, L, [(bufs[i], n_i, lr) for i, (n_i, lr) in enumerate(slices)]
+
+    def _dispatch(self, buf, n: int, start0, last_lane: int, final: bool,
+                  n_lanes: int, full: bool):
+        """One dispatch, enqueued: (out, count, missing, start_next,
+        sync_ok, junction_ok, done_all) as device tensors."""
+        tabs = self.tables
+        if tabs.has_space:
+            m, mb = match(buf, n, tabs)
+        else:
+            m, mb = match(buf, n, tabs), None
+        ctl, tok = decide(m, mb, buf, n, tabs)
+        t_rec = self._t_rec(full)
+        recs, toks, done_all = follow(ctl, tok, n, self.chunk, n_lanes,
+                                      OVERLAP_SCAN, t_rec)
+        out, count, missing, start_next, sync_ok, junction_ok = (
+            device_stitch_compact(recs, toks, start0, last_lane, final,
+                                  t_rec * n_lanes))
+        return (out, count, missing, start_next, sync_ok, junction_ok,
+                done_all)
+
+    def _run_staged(self, staged, full: bool = False):
+        """Enqueue every dispatch of a staged text, ``start_next`` carried
+        as a device tensor; no host sync."""
+        _n, L, bufs = staged
+        start0 = torch.zeros((), dtype=torch.int64, device=self.device)
+        outs = []
+        for i, (buf, n_i, last_lane) in enumerate(bufs):
+            out, count, missing, start0, *flags = self._dispatch(
+                buf, n_i, start0, last_lane, i == len(bufs) - 1, L, full)
+            outs.append((out, count, missing, *flags))
+        return outs
+
+    def tokenize_staged(self, staged, full: bool = False):
+        """Run the device pipeline on a staged text and download the ids.
+        Returns (ids u32, missing), or the cause when a dispatch did not
+        sync: "window" (a lane overflowed its record window), "junction"
+        (an owned junction found no shared state) or "missing_byte" (a kept
+        record emits nothing).  A fast-window overflow retries once on the
+        full window."""
+        outs = self._run_staged(staged, full)
+        k = len(outs)
+        meta = torch.stack([torch.stack([o[j].long() for o in outs])
+                            for j in range(1, 6)]).cpu()
+        counts, missings, syncs, junctions, dones = meta.numpy()
+        if not dones.all():
+            if not full:
+                return self.tokenize_staged(staged, full=True)
+            return "window"
+        if not syncs.all():
+            return "junction" if not junctions.all() else "missing_byte"
+        self.last_mode = "full" if full else "fast"
+        words = torch.cat([outs[i][0][:int(counts[i])] for i in range(k)])
+        ids = resolve_device(words, self.tables).cpu().numpy()
+        return ids.astype(np.uint32), int(missings.sum())
+
+    def tokenize(self, data: bytes):
+        """Tokenize normalized+capcoded bytes; returns (ids u32, missing)."""
+        if len(data) == 0 or self.vocab.max_token_length == 0:
+            return np.zeros(0, np.uint32), 0
+        res = self.tokenize_staged(self.stage(data))
+        if not isinstance(res, str):
+            return res
+        if res == "window":
+            raise RuntimeError("a lane overflowed the full record window, "
+                               "which holds one record per scanned byte: "
+                               "a fault of the decide or follow kernel")
+        nv = self.vocab._native_vocab()
+        if nv is not None:
+            ids, missing = nv.tokenize(bytes(data))
+        else:
+            ids, missing = host_tokenize(self.vocab, bytes(data))
+        if res == "missing_byte" and (missing == 0 or self.tables.has_unk):
+            raise RuntimeError("a kept record emitted no token, but the text "
+                               "has no byte the vocabulary lacks: a fault of "
+                               "the decide or follow kernel")
+        self.fallbacks[res] += 1
+        self.last_mode = "host"
+        _log.warning("device path did not sync for %d bytes (%s); tokenized "
+                     "on the host (fallbacks %s)", len(data), res,
+                     self.fallbacks)
+        return ids, missing
