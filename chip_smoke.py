@@ -12,6 +12,14 @@ the native host tokenizer, shows the counted host fallback, and times each
 kernel beside its plain version, the staged device chain, the end-to-end
 call and the native tokenizer.
 
+The trainer phase distils a getalltokens pool of 8 MiB of real text toward
+32,000 ids: match, decide and follow on a candidate's masked superset
+tables against their plain versions, ``GpuCandidateScorer.score`` against
+the native scorer on the whole text, the junction repair on a forced run,
+and three seeded rounds of ``train_vocab`` on the card against the native
+backend (every scored candidate, the deletions of each round, the files
+written), with times.
+
 Phases print as they go; any failure raises and exits non-zero.  The line
 before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -21,6 +29,7 @@ repository around it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -41,10 +50,24 @@ TPU_KERNELS = {               # the Pallas kernel each CUDA kernel replaces
     "compact": "tokenmonster_tpu/ops/pallas_stitch.py:34",
 }
 SOURCE = "tokenmonster_tpu_torch/csrc/tm_kernels.cu"
+TRAIN_BYTES = 8 << 20         # raw text the trainer phase distils
+TRAIN_MIN_OCCUR = 57          # getalltokens min_occur_total: the source's
+                              # pool of about 60k, kept above twice the
+                              # vocab (64,000) so the rounds distil: 57
+                              # gives 65,839 on this text, 60 gave 63,064
+TRAIN_POOL = (60_000, 120_000)
+TRAIN_VOCAB = 32000
+TRAIN_ROUNDS = 3
+TRAIN_SEED = 7
+TRAIN_KERNELS = ("match", "decide", "follow")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+T0 = time.perf_counter()
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -150,6 +173,284 @@ def compare(pairs, name: str) -> int:
     return max_abs_err(got, want)
 
 
+class _RoundLog(logging.Handler):
+    """The master loop's "round N: deleted K; ..." lines."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("round "):
+            self.lines.append(msg)
+
+
+def _train(run, log: _RoundLog):
+    """(round lines, wall seconds) of one training run."""
+    log.lines = []
+    t0 = time.perf_counter()
+    run()
+    return list(log.lines), time.perf_counter() - t0
+
+
+def _dir_bytes(path) -> dict:
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def trainer_phase(dev, card: str) -> dict:
+    """Candidate scoring and ``train_vocab`` on the card; returns, per
+    kernel on the trainer's path, its trainer-shape numbers."""
+    import random
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from tokenmonster_tpu.core import capcode as cc
+    from tokenmonster_tpu.core.normalize import Normalizer
+    from tokenmonster_tpu.core.vocab import normalize_and_capcode
+    from tokenmonster_tpu.train import trainvocab as ref
+    from tokenmonster_tpu.train.getalltokens import (get_all_tokens,
+                                                     load_tokens_file,
+                                                     save_tokens_file)
+    from tokenmonster_tpu_torch.corpus import stdlib_text
+    from tokenmonster_tpu_torch.native import load_native
+    from tokenmonster_tpu_torch.ops import _build
+    from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
+    from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
+    from tokenmonster_tpu_torch.ops.match import match, match_plain
+    from tokenmonster_tpu_torch.ops.scan import MARGIN, OVERLAP_SCAN
+    from tokenmonster_tpu_torch.parallel.score import score_strips
+    from tokenmonster_tpu_torch.train import trainvocab as port
+    from tokenmonster_tpu_torch.train.score_helpers import \
+        candidate_runtime_state
+
+    failed = []
+    load_native()
+
+    def native_score(cand, datasets):
+        """The native trainer scorer (``tm_tokenize_score``): the reference
+        ``CandidateScorer.score``."""
+        return ref.CandidateScorer(cand.charset, cand.using_capcode,
+                                   cand.normalizer.flag).score(cand, datasets)
+
+    def check(cond, msg: str) -> None:
+        """Record a failed check; the phase fails at its end, after every
+        check has run and printed."""
+        if not cond:
+            print(f"FAILED: {msg}", flush=True)
+            failed.append(msg)
+
+    raw, _dropped = stdlib_text(None, TRAIN_BYTES)
+    t0 = time.perf_counter()
+    counter, char_table, header = get_all_tokens(
+        raw, "balanced", charset=1, normalization="nfd", using_capcode=2,
+        min_occur_total=TRAIN_MIN_OCCUR)
+    print(f"pool: {len(counter)} candidates from {len(raw)} bytes of "
+          f"standard-library text (balanced, capcode 2, nfd, min occur "
+          f"{TRAIN_MIN_OCCUR}) in {time.perf_counter() - t0:.1f} s")
+    require(TRAIN_POOL[0] <= len(counter) <= TRAIN_POOL[1],
+            f"pool of {len(counter)} outside {TRAIN_POOL}")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_trainer_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        tok_path = os.path.join(work, "pool.tok")
+        save_tokens_file(tok_path, counter, char_table, header)
+        dic = load_tokens_file(tok_path)
+        capcode, norm_flag = dic["using_capcode"], dic["norm_flag"]
+        text = normalize_and_capcode(raw, capcode, Normalizer(norm_flag))
+
+        pool = port.superset_pool(tok_path)
+        sc = port.GpuCandidateScorer(dic["charset"], capcode, norm_flag,
+                                     device=dev)
+        sc.set_specials([])
+        t0 = time.perf_counter()
+        sc.prepare(pool)
+        torch.cuda.synchronize()
+        arm_s = time.perf_counter() - t0
+        sup = sc._sup
+        print(f"superset: {len(sup.vocab.tokens)} entries from a pool of "
+              f"{len(pool)} tokens, armed (vocabulary, CHD placement, "
+              f"upload) in {arm_s:.3f} s [{card}]")
+
+        # candidates as the master loop makes them: the singles, then a
+        # seeded shuffle of the tokens cut to the effective vocab size
+        singles = sorted({t for t in dic["tokens"] if len(t) == 1}
+                         | {bytes([b]) for b in (cc.DELETE_TOKEN,
+                                                 cc.CHARACTER_TOKEN,
+                                                 cc.WORD_TOKEN)})
+        multi = [t for t in pool if len(t) > 1]
+        rng = random.Random(TRAIN_SEED)
+        tk = sup.tokenizer
+        chunk = tk.chunk
+        _n, lanes, bufs = tk.stage(text[:(LANES - 1) * chunk + MARGIN])
+        require(lanes == LANES, f"{lanes} lanes staged")
+        buf, n, _last = bufs[0]
+        t_rec = tk._t_rec(False)
+
+        def masked_pairs(tabs):
+            """(kernel, plain) closures of the trainer's kernels on one
+            candidate's tables, on the same inputs."""
+            m, mb = match(buf, n, tabs)
+            ctl, tok = decide(m, mb, buf, n, tabs)
+            return {
+                "match": (lambda: match(buf, n, tabs),
+                          lambda: match_plain(buf, n, tabs)),
+                "decide": (lambda: decide(m, mb, buf, n, tabs),
+                           lambda: decide_plain(m, mb, buf, n, tabs)),
+                "follow": (lambda: follow(ctl, tok, n, chunk, LANES,
+                                          OVERLAP_SCAN, t_rec)[:2],
+                           lambda: follow_plain(ctl, tok, n, chunk, LANES,
+                                                OVERLAP_SCAN, t_rec)[:2]),
+            }
+
+        errs = dict.fromkeys(TRAIN_KERNELS, 0)
+        mask_ms, score_ms = [], []
+        for ci in range(3):
+            rng.shuffle(multi)
+            cand = sc.build(singles + multi[:TRAIN_VOCAB - len(singles)])
+            t0 = time.perf_counter()
+            tabs = candidate_runtime_state(sup, cand)
+            torch.cuda.synchronize()
+            mask_ms.append((time.perf_counter() - t0) * 1e3)
+            cpairs = masked_pairs(tabs)
+            for name in TRAIN_KERNELS:
+                errs[name] = max(errs[name], compare(cpairs, name))
+            pairs = cpairs         # timed below: the last candidate's
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got_s, got_t, got_m, repairs = score_strips(
+                tk, tabs, [text], len(cand.reverse))
+            end.record()
+            end.synchronize()
+            score_ms.append(start.elapsed_time(end))
+            want_s, want_t, want_m = native_score(cand, [text])
+            check(np.array_equal(got_s, want_s) and got_t == want_t
+                  and set(np.nonzero(got_m)[0].tolist()) == want_m,
+                  f"candidate {ci}: device scores differ from native")
+            got = sc.score(cand, [text])
+            check(np.array_equal(got[0], want_s) and got[1] == want_t
+                  and got[2] == want_m,
+                  f"candidate {ci}: GpuCandidateScorer.score differs")
+            print(f"candidate {ci}: {len(cand.reverse)} ids, "
+                  f"{len(cand.tokens)} entries; match/decide/follow "
+                  f"max_abs_err {errs}; {got[1]} tokens, missing "
+                  f"{sorted(got[2])}, junction repairs {repairs} over "
+                  f"{len(text)} bytes, all on the card")
+        check(not any(errs.values()), f"kernels disagree: {errs}")
+
+        # the junction repair, forced: after an "x", a run of "a" with
+        # tokens "aa", "a", "x" puts every lane out of the text's phase
+        rv = ref.CandidateScorer(1, 2, norm_flag).build([b"aa", b"a", b"x"])
+        rsc = port.GpuCandidateScorer(1, 2, norm_flag, device=dev)
+        rsc.set_specials([])
+        rsc.prepare([b"aa", b"a", b"x"])
+        run = [b"x" + b"a" * (300 << 10) + b"xaaxa" * 20]
+        got = rsc.score(rv, run)
+        want = native_score(rv, run)
+        check(np.array_equal(got[0], want[0]) and got[1:] == want[1:]
+              and rsc.repairs > 0, f"repaired run: {rsc.repairs} repairs, "
+                                   "or scores differ from native")
+        print(f"junction repair: {len(run[0])} bytes of one run, "
+              f"{rsc.repairs} repairs, equal to native")
+        print(f"host masking: {statistics.median(mask_ms):.3f} ms per "
+              f"candidate (median of 3, upload included); device score: "
+              f"{statistics.median(score_ms):.3f} ms per candidate over "
+              f"{len(text)} bytes (CUDA events, read-back included) [{card}]")
+
+        # train_vocab on the card against the native backend
+        scored, scorers = [], []
+
+        class Recording(port.GpuCandidateScorer):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                scorers.append(self)
+
+            def prepare(self, superset_tokens, hashmatch_tables=None):
+                t0 = time.perf_counter()
+                super().prepare(superset_tokens, hashmatch_tables)
+                torch.cuda.synchronize()
+                self.arm_s = time.perf_counter() - t0
+
+            def score(self, cand, datasets):
+                res = super().score(cand, datasets)
+                scored.append((cand, datasets, res))
+                return res
+
+        log = _RoundLog()
+        logger = logging.getLogger("tokenmonster_tpu.trainvocab")
+        logger.addHandler(log)
+        logger.setLevel(logging.INFO)
+
+        def config(backend):
+            return ref.TrainConfig(vocab_size=TRAIN_VOCAB, workers=2,
+                                   fast=True, seed=TRAIN_SEED,
+                                   max_rounds=TRAIN_ROUNDS, backend=backend)
+
+        res_cuda = os.path.join(work, "cuda")
+        res_native = os.path.join(work, "native")
+        _build.reset_launches()
+        with mock.patch.object(port, "GpuCandidateScorer", Recording):
+            rounds_cuda, cuda_s = _train(lambda: port.train_vocab(
+                raw, tok_path, res_cuda, config("cuda"), device=dev), log)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        rounds_native, native_s = _train(lambda: ref.train_vocab(
+            raw, tok_path, res_native, config("native")), log)
+        logger.removeHandler(log)
+        check(ref.CandidateScorer is port.CandidateScorer,
+              "train_vocab left its scorer bound in the reference")
+        for line in rounds_cuda:
+            print(f"cuda   {line}")
+        check(rounds_cuda == rounds_native,
+              f"rounds differ from native: {rounds_native}")
+        check(any(" deleted 0;" not in r for r in rounds_cuda),
+              "no round deleted a token")
+        files = _dir_bytes(res_cuda)
+        check(files and files == _dir_bytes(res_native),
+              f"results differ from native's: {sorted(files)}")
+        check(len(scorers) == 1, f"{len(scorers)} scorers armed")
+        for cand, datasets, (got_s, got_t, got_miss) in scored:
+            want_s, want_t, want_m = native_score(cand, datasets)
+            check(np.array_equal(got_s, want_s) and got_t == want_t
+                  and got_miss == want_m,
+                  "a candidate of the cuda run differs from native")
+        check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+              f"a trainer kernel was not launched: {launches}")
+        print(f"train_vocab: {len(scored)} candidates scored on the card "
+              f"and by native, {len(files)} files written "
+              f"({', '.join(sorted(files))}); junction repairs "
+              f"{scorers[0].repairs}, every byte on the card; launches "
+              f"{launches}")
+        arm = scorers[0].arm_s if scorers else 0.0
+        print(f"wall per round: cuda {(cuda_s - arm) / TRAIN_ROUNDS:.3f} s "
+              f"after a {arm:.3f} s superset arm, native "
+              f"{native_s / TRAIN_ROUNDS:.3f} s ({os.cpu_count()} host "
+              f"threads) [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    out = {}
+    for name in TRAIN_KERNELS:
+        kernel, plain = pairs[name]
+        out[name] = {"trainer_launches": launches[name],
+                     "trainer_max_abs_err": errs[name],
+                     "trainer_ms": cuda_ms(kernel),
+                     "trainer_plain_ms": cuda_ms(plain, calls=1)}
+        print(f"{name}: trainer shapes kernel {out[name]['trainer_ms']:.4f}"
+              f" ms, plain {out[name]['trainer_plain_ms']:.4f} ms "
+              f"(N={buf.numel()}, {LANES} lanes, masked superset of "
+              f"{len(sup.vocab.tokens)}) [{card}]")
+    require(not failed, f"trainer phase: {len(failed)} checks failed")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -230,9 +531,10 @@ def main() -> int:
     lines = raw.splitlines(keepends=True)
     batch_raw = []
     for i, size in enumerate(sizes):   # whole lines: a cut character
-        item, at = [], 1000 * i        # would be a byte the vocab lacks
-        while sum(map(len, item)) < size:
+        item, at, got = [], 1000 * i, 0  # would be a byte the vocab lacks
+        while got < size:
             item.append(lines[at])
+            got += len(lines[at])
             at += 1
         batch_raw.append(b"".join(item))
     vocab.route = "device"      # every item, small ones too, on the card
@@ -281,7 +583,8 @@ def main() -> int:
                         "plain_ms": plain_ms})
     staged = tk.stage(norm)
     tk.tokenize_staged(staged)
-    chain_s = host_seconds(lambda: tk._run_staged(staged))
+    chain_s = host_seconds(lambda: tk._run_staged(staged, False, tk.tables,
+                                                  tk._compact, {}))
     print(f"device chain: {len(norm) / chain_s / 1e6:.3f} MB/s over "
           f"{len(norm)} normalized bytes ({chain_s * 1e3:.3f} ms) [{card}]")
     e2e = []
@@ -306,6 +609,12 @@ def main() -> int:
     nat_s = statistics.median(nat)
     print(f"native: {len(norm) / nat_s / 1e6:.3f} MB/s over {len(norm)} "
           f"normalized bytes, {os.cpu_count()} host threads [{card}]")
+
+    phase("trainer: candidate scoring and train_vocab")
+    trainer = trainer_phase(dev, card)
+    require("jax" not in sys.modules, "the trainer imported jax")
+    for k in kernels:
+        k.update(trainer.get(k["name"], {}))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -72,7 +72,10 @@ def test_route_pinned_and_recorded():
 def test_import_leaves_jax_out():
     code = ("import sys, tokenmonster_tpu_torch, tokenmonster_tpu_torch.api,"
             " tokenmonster_tpu_torch.ops.scan, tokenmonster_tpu_torch.ops"
-            "._build; bad = [m for m in sys.modules if m == 'jax' or "
+            "._build, tokenmonster_tpu_torch.train.trainvocab, "
+            "tokenmonster_tpu_torch.parallel.score, "
+            "tokenmonster_tpu_torch.corpus; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('jaxlib')]; "
             "assert not bad, bad; print('ok')")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -2,7 +2,9 @@
 the JAX Pallas kernel (interpret mode) on the same match words, bit for bit
 at all N positions (tolerance 0), and resolve_tokens against its original.
 Covers one fd row (capcode 0), two rows (delete token), unk, and lil_off 1
-and 2 (UTF-16)."""
+and 2 (UTF-16).  Where the port advances 0 bytes and the JAX kernel 1 (an
+fd-1 alternative that is the virtual space alone), the JAX words are
+compared as the port writes them (``torch_cases.port_ctl``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +17,7 @@ from tokenmonster_tpu.ops.pallas_match import make_match_kernel
 from tokenmonster_tpu_torch.ops.decide import decide, resolve_device
 from tokenmonster_tpu_torch.ops.tables import upload_tables
 
-from torch_cases import VOCABS, hashmatch_tables, text_for
+from torch_cases import VOCABS, hashmatch_tables, port_ctl, text_for
 
 N = 2048
 
@@ -43,6 +45,7 @@ def test_decide_equals_jax_kernel(name):
         want = jd(jm, jnp.asarray(buf), n)
         got = decide(torch.from_numpy(m.view(np.int32)), None, text, n, dt)
         assert got[0].shape == (N,)
+    want = (port_ctl(want[0], want[1], dt.meta.numpy()), want[1])
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy().view(np.uint32),
                                       np.asarray(w))

@@ -19,7 +19,8 @@ from tokenmonster_tpu_torch.ops.follow import follow_plain, window
 from tokenmonster_tpu_torch.ops.match import match_plain
 from tokenmonster_tpu_torch.ops.tables import upload_tables
 
-from torch_cases import OVERLAP, VOCABS, hashmatch_tables, text_for
+from torch_cases import (OVERLAP, VOCABS, ZERO_STEP_TEXT, hashmatch_tables,
+                         text_for, zero_step_vocab)
 
 N = 4096
 
@@ -78,8 +79,7 @@ def test_match_host_equals_plain(host_lib, stages):
         assert torch.equal(got_mb, mb)
 
 
-def test_decide_host_equals_plain(host_lib, stages):
-    _name, dt, buf, n, m, mb, ctl, tok = stages
+def _decide_host(lib, dt, buf, n, m, mb):
     rows = 2 if dt.has_delete else 1
     got_c = torch.full((rows, N), -1, dtype=torch.int32)
     got_t = torch.full((rows, N), -1, dtype=torch.int32)
@@ -90,9 +90,39 @@ def test_decide_host_equals_plain(host_lib, stages):
         meta_stride=dt.meta.shape[1], n=n, has_delete=int(dt.has_delete),
         has_unk=int(dt.has_unk), unk_token=dt.unk_token,
         lil_off=dt.lil_off)
-    host_lib.tm_decide_host(ctypes.byref(args), rows)
+    lib.tm_decide_host(ctypes.byref(args), rows)
+    return got_c, got_t
+
+
+def test_decide_host_equals_plain(host_lib, stages):
+    _name, dt, buf, n, m, mb, ctl, tok = stages
+    got_c, got_t = _decide_host(host_lib, dt, buf, n, m, mb)
     assert torch.equal(got_c.reshape(ctl.shape), ctl)
     assert torch.equal(got_t.reshape(tok.shape), tok)
+
+
+def test_zero_advance_step_host_equals_plain(host_lib):
+    """The fd-1 step that advances 0 bytes (torch_cases.zero_step_vocab):
+    decide and follow of the kernels' code equal the plain versions, and
+    the lanes' records hold the step (a record at the position of the one
+    before it)."""
+    v = zero_step_vocab()
+    dt = upload_tables(v, hashmatch_tables(v), "cpu")
+    buf = torch.zeros(N, dtype=torch.uint8)
+    buf[:len(ZERO_STEP_TEXT)] = torch.tensor(list(ZERO_STEP_TEXT),
+                                             dtype=torch.uint8)
+    n = len(ZERO_STEP_TEXT)
+    m, mb = match_plain(buf, n, dt)
+    ctl, tok = decide_plain(m, mb, buf, n, dt)
+    got_c, got_t = _decide_host(host_lib, dt, buf, n, m, mb)
+    assert torch.equal(got_c, ctl) and torch.equal(got_t, tok)
+    assert ((ctl[1, :n] & 63) == 0).any()
+    want = follow_plain(ctl, tok, n, 64, 8, OVERLAP, 256)
+    got = _follow_host(host_lib, ctl, tok, n, 64, 8, 256)
+    for w, g in zip(want, got):
+        assert torch.equal(g, w)
+    pos = want[0].long() >> 4
+    assert ((pos[1:] == pos[:-1]) & (want[0][1:] != 0)).any()
 
 
 def _follow_host(lib, ctl, tok, n, chunk, L, t_rec):

@@ -80,3 +80,39 @@ def test_stitch_compact_equal(case):
     if name == "unk":
         assert int(got[2]) > 0      # misses counted, emitted as unk
     jax.clear_caches()
+
+
+def test_splice_at_a_state_after_an_in_place_step():
+    """A step from fd 1 to fd 0 that keeps its position (the decide's
+    zero-byte advance) sits before the shared state: the left lane holds
+    (4, 0), (7, 1), (7, 0), (9, 0), (12, 0), the right lane, from byte 6,
+    (7, 0), (9, 0), ...  The splice is the first shared state, (7, 0)."""
+    tok, dele, fd = 2, 4, 1
+    left = [(4 << 4) | tok, (7 << 4) | tok | dele | fd, (7 << 4) | tok,
+            (9 << 4) | tok, (12 << 4) | tok]
+    right = [(7 << 4) | tok, (9 << 4) | tok, (12 << 4) | tok,
+             (14 << 4) | tok, 0]
+    recs = torch.tensor([left, right], dtype=torch.int32).T.contiguous()
+    _f, keep, _sn, ok, start_rec, end_rec = tstitch.stitched_keep(
+        recs, 0, 1, True)
+    assert bool(ok)
+    assert start_rec.tolist() == [0, 1] and end_rec.tolist() == [2, 3]
+    assert int(keep.sum()) == 6
+
+
+def test_restart_point(case):
+    """Where every splice holds there is nothing to restart; where lane 1
+    stays out of phase with lane 0, the chain restarts at lane 0's last
+    record with fd 0 before its last record, at or after its own splice."""
+    _name, recs, _toks, start0, last_lane, final = case
+    assert tstitch.restart_point(recs, start0, last_lane, final) is None
+    tok, dele, fd = 2, 4, 1
+    lanes = [[(1 << 4) | tok, (3 << 4) | tok, (5 << 4) | tok,
+              (7 << 4) | tok | dele | fd, (9 << 4) | tok],
+             [(6 << 4) | tok, (8 << 4) | tok, (10 << 4) | tok, 0, 0],
+             [(10 << 4) | tok, (12 << 4) | tok, 0, 0, 0]]
+    grid = torch.tensor(lanes, dtype=torch.int32).T.contiguous()
+    assert tstitch.restart_point(grid, 0, 2, True) == (0, 5)
+    assert tstitch.restart_point(grid, 3, 2, True) == (0, 5)
+    with pytest.raises(RuntimeError, match="no record with fd 0"):
+        tstitch.restart_point(grid, 4, 2, True)

@@ -3,23 +3,23 @@ the four kernels plus the PyTorch stitch and chaining — against the JAX
 TpuTokenizer (Pallas engine, interpret mode), the host oracle and the
 native tokenizer.  Ids and missing counts must be equal (tolerance 0)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tokenmonster_tpu.core.tokenizer import tokenize as host_tokenize
 from tokenmonster_tpu.core.vocab import Vocab, normalize_and_capcode
-from tokenmonster_tpu.native import NativeVocab
+from tokenmonster_tpu.ops import stitch as jstitch
 from tokenmonster_tpu.ops.scan import TpuTokenizer
 from tokenmonster_tpu_torch.ops import scan, stitch
-from tokenmonster_tpu_torch.ops.scan import GpuTokenizer
+from tokenmonster_tpu_torch.ops.decide import decide
+from tokenmonster_tpu_torch.ops.follow import follow
+from tokenmonster_tpu_torch.ops.match import match
+from tokenmonster_tpu_torch.ops.scan import OVERLAP_SCAN, GpuTokenizer
 
-from torch_cases import ENGLISH, VOCABS, realtext_vocab, text_for
-
-
-def _native(v, data):
-    ids, missing = NativeVocab(v).tokenize(data)
-    return np.asarray(ids, np.uint32), missing
+from torch_cases import (ENGLISH, VOCABS, ZERO_STEP_TEXT, native_ids,
+                         realtext_vocab, text_for, zero_step_vocab)
 
 
 @pytest.mark.parametrize("name", sorted(VOCABS))
@@ -34,7 +34,7 @@ def test_tokenizer_equals_jax_oracle_native(name):
     assert missing == wmiss
     if name == "unk":
         assert missing > 0
-    nids, nmiss = _native(v, data)
+    nids, nmiss = native_ids(v, data)
     np.testing.assert_array_equal(ids, nids)
     assert missing == nmiss
     jids, jmiss = TpuTokenizer(v, chunk=64).tokenize(data)
@@ -52,7 +52,7 @@ def test_multi_dispatch_bridges():
     assert L == 512 and len(plan) == 3
     ids, missing = tk.tokenize(data)
     assert tk.last_mode == "fast" and tk.host_fallbacks == 0
-    nids, nmiss = _native(v, data)
+    nids, nmiss = native_ids(v, data)
     np.testing.assert_array_equal(ids, nids)
     assert missing == nmiss == 0
 
@@ -99,11 +99,62 @@ def test_junction_without_shared_state_falls_back():
     ids, missing = tk.tokenize(data)
     assert tk.fallbacks == {"missing_byte": 0, "junction": 1}
     assert tk.last_mode == "host"
-    nids, nmiss = _native(v, data)
+    nids, nmiss = native_ids(v, data)
     np.testing.assert_array_equal(ids, nids)
     assert missing == nmiss == 0
     jids, jmiss = TpuTokenizer(v, chunk=64).tokenize(data)
     np.testing.assert_array_equal(ids, np.asarray(jids, np.uint32))
+
+
+def test_splice_past_the_first_16_records():
+    """Runs of 119 "a" between "x" and "y" (tokens "aa", "a", "x", "y"):
+    a lane that starts inside a run stays out of phase with its left
+    neighbour until the run ends, up to 59 records in but within the
+    128-byte overlap.  The port searches every record and splices there;
+    the JAX package's 16-record probe misses some of these junctions.  No
+    fallback, ids exact."""
+    v = Vocab()
+    v._generate(tokens=[b"aa", b"a", b"x", b"y"], charset=1,
+                normalize_string="none", using_capcode=0, level=5,
+                reset_token_ids=True)
+    data = (b"x" + b"a" * 119 + b"y") * 40
+    tk = GpuTokenizer(v, chunk=256, device="cpu")
+    ids, missing = tk.tokenize(data)
+    assert tk.fallbacks == {"missing_byte": 0, "junction": 0}
+    assert tk.last_mode == "fast"
+    nids, nmiss = native_ids(v, data)
+    np.testing.assert_array_equal(ids, nids)
+    assert missing == nmiss == 0
+    _n, lanes, bufs = tk.stage(data)
+    buf, n, last_lane = bufs[0]
+    ctl, tok = decide(match(buf, n, tk.tables), None, buf, n, tk.tables)
+    recs, _toks, _done = follow(ctl, tok, n, 256, lanes, OVERLAP_SCAN,
+                                tk._t_rec(False))
+    assert bool(stitch.stitched_keep(recs, 0, last_lane, True)[3])
+    assert not bool(jstitch.stitched_keep(
+        jnp.asarray(recs.numpy().view(np.uint32)), jnp.int32(0),
+        jnp.int32(last_lane), jnp.bool_(True))[3])
+
+
+def test_zero_advance_step_equals_native():
+    """An fd-1 alternative that is the virtual space alone advances 0
+    bytes (o, D, " ", u, t on "out\xc2", unk vocabulary): ids equal native
+    and the host oracle, on the device path.  The JAX device path, which
+    clamps every advance to one byte, parts from native here."""
+    v = zero_step_vocab(unk=True)
+    data = ZERO_STEP_TEXT
+    tk = GpuTokenizer(v, chunk=64, device="cpu")
+    ids, missing = tk.tokenize(data)
+    assert tk.last_mode == "fast" and tk.host_fallbacks == 0
+    nids, nmiss = native_ids(v, data)
+    np.testing.assert_array_equal(ids, nids)
+    want, wmiss = host_tokenize(v, data)
+    np.testing.assert_array_equal(ids, np.asarray(want, np.uint32))
+    assert missing == nmiss == wmiss == 30
+    step = [v.reverse.index(t) for t in (b"o", b"D", b" ", b"u", b"t")]
+    assert list(ids[:5]) == step
+    jids, _jmiss = TpuTokenizer(v, chunk=64).tokenize(data)
+    assert not np.array_equal(np.asarray(jids, np.uint32), nids)
 
 
 def test_full_window_overflow_raises(monkeypatch):
@@ -144,7 +195,7 @@ def test_realtext_32000_equals_native():
     tk = GpuTokenizer(v, chunk=256, device="cpu")
     ids, missing = tk.tokenize(data)
     assert tk.last_mode == "fast" and tk.host_fallbacks == 0
-    nids, nmiss = _native(v, data)
+    nids, nmiss = native_ids(v, data)
     np.testing.assert_array_equal(ids, nids)
     assert missing == nmiss == 0
     assert len(ids) > 1000

@@ -9,6 +9,8 @@ import torch
 
 from tokenmonster_tpu.core.vocab import Vocab, normalize_and_capcode
 from tokenmonster_tpu.ops.hashmatch import build_hashmatch
+from tokenmonster_tpu.train.trainvocab import CandidateScorer
+from tokenmonster_tpu_torch import native as tnative
 from tokenmonster_tpu_torch.ops.decide import decide
 from tokenmonster_tpu_torch.ops.match import match
 from tokenmonster_tpu_torch.ops.tables import space_prefix, upload_tables
@@ -149,3 +151,97 @@ def decisions(name, n_bytes, N, misses=True):
 
 def u32(t):
     return t.numpy().view(np.uint32)
+
+
+def native_ids(v, data):
+    """(ids u32, missing) of the native tokenizer, reached through the
+    port's race-safe loader."""
+    ids, missing = tnative.native_vocab(v).tokenize(data)
+    return np.asarray(ids, np.uint32), missing
+
+
+def native_score(v, datasets):
+    """(scores int64 [n_ids], tokens in text, missing set) of the native
+    trainer scorer (``tm_tokenize_score``): the reference
+    ``CandidateScorer.score``, its library loaded by the port's race-safe
+    loader."""
+    tnative.load_native()
+    return CandidateScorer(v.charset, v.using_capcode,
+                           v.normalizer.flag).score(v, datasets)
+
+
+def with_unk(scorer_cls):
+    """``scorer_cls`` whose ``build`` enables the unk token: the superset
+    it prepares carries one, and candidates made from that superset's
+    vocabulary by deleting tokens (``_generate(delete_tokens=...)``, which
+    keeps every id) keep its unk id."""
+    class UnkScorer(scorer_cls):
+        def build(self, token_list):
+            v = super().build(token_list)
+            assert v.enable_unk_token()
+            return v
+    return UnkScorer
+
+
+def candidate(scorer, tokens, drops, unk: bool):
+    """A candidate vocabulary: ``tokens`` less ``drops``, built the way the
+    trainer builds one (``scorer.build``); with ``unk``, the superset
+    vocabulary with ``drops`` deleted, so its unk id stays the superset's.
+    """
+    if not unk:
+        return scorer.build([t for t in tokens if t not in set(drops)])
+    v = scorer.build(tokens)
+    v._generate(delete_tokens=list(drops))
+    return v
+
+
+def drop_sets(v, seed: int, k: int = 3):
+    """``k`` seeded drop sets of about a fifth of ``v``'s multi-byte tokens
+    each (the first is empty: the whole superset)."""
+    rng = np.random.default_rng(seed)
+    multi = [bytes(t) for t in v.tokens if len(t) > 1]
+    out = [[]]
+    for _ in range(k - 1):
+        pick = rng.random(len(multi)) < 0.2
+        out.append([t for t, p in zip(multi, pick) if p])
+    return out
+
+
+def port_ctl(ctl, tok, meta):
+    """The JAX decide kernel's ctl words (u32) as the port's decide writes
+    them.  The JAX kernel clamps every advance to at least one byte; at fd 1
+    the port advances an alternative branch (w3 1 or 2) whose alternative
+    is one byte long, the virtual space alone, by 0 bytes, as the native
+    tokenizer does.  ``tok``: the JAX tok words; ``meta``: the meta planes
+    (2, R*128) the decide read."""
+    ctl = np.array(ctl, np.uint32)
+    if ctl.ndim == 1:
+        return ctl
+    tok = np.asarray(tok, np.uint32)[1]
+    w3 = (tok >> 20) & 3
+    f0 = np.asarray(meta)[0][np.minimum(tok & 0xFFFFF,
+                                        meta.shape[1] - 1)].astype(np.uint32)
+    alt_len = np.where(w3 == 1, (f0 >> 16) & 0xFF, (f0 >> 24) & 0xFF)
+    zero = ((w3 == 1) | (w3 == 2)) & (alt_len == 1)
+    assert ((ctl[1][zero] & 63) == 1).all()
+    ctl[1][zero] -= 1
+    return ctl
+
+
+ZERO_STEP_TOKENS = [b" ", b"D", b"o", b"t", b"u", b"time", b" ut", b"tim"]
+ZERO_STEP_TEXT = (b"out\xc2" + b"time" * 2) * 30
+
+
+def zero_step_vocab(unk: bool = False):
+    """Capcode 2 with a delete token, where "o" then " ut" is a forward-
+    delete branch and, before the missing byte after "ut", " ut" gives way
+    to its alternative " ", the virtual space alone: that step advances 0
+    bytes (o, D, " ", u, t on "out\\xc2").  ``ZERO_STEP_TEXT`` holds it 30
+    times; its ids stay within the native tokenizer's buffer of n + 8.
+    ``ZERO_STEP_TOKENS`` are its tokens as the trainer builds them."""
+    v = Vocab()
+    v._generate(tokens=ZERO_STEP_TOKENS, charset=1, normalize_string="none", using_capcode=2,
+                level=5, reset_token_ids=True)
+    if unk:
+        assert v.enable_unk_token()
+    return v

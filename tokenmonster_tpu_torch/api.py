@@ -19,6 +19,7 @@ import numpy as np
 
 from tokenmonster_tpu import api as _api
 
+from .native import native_vocab
 from .ops.scan import GpuTokenizer, check_device
 
 ROUTES = ("auto", "device")
@@ -63,7 +64,7 @@ class Vocab(_api.Vocab):
                                       and self._pick_route() == "tpu"):
             route, ids = "device", self._device_ids(normalized, timed=auto)
         else:
-            route, ids = "native", self._native_ids(item, normalized,
+            route, ids = "native", self._native_ids(normalized,
                                                     timed=candidate)
         with self._route_lock:
             self.last_route = route
@@ -89,15 +90,18 @@ class Vocab(_api.Vocab):
                     len(normalized) / max(time.monotonic() - t0, 1e-9))
         return ids
 
-    def _native_ids(self, item: bytes, normalized: bytes,
-                    timed: bool) -> np.ndarray:
+    def _native_vocab(self):
+        """The native tokenizer of this vocabulary, reached through the
+        race-safe loader; raises when the library cannot be built."""
+        if not self._native:
+            self._native = native_vocab(self._core)
+        return self._native
+
+    def _native_ids(self, normalized: bytes, timed: bool) -> np.ndarray:
         """Ids from the native host tokenizer; ``timed`` records its rate."""
         nv = self._native_vocab()
         t0 = time.monotonic()
-        if nv is not None:
-            ids, _missing = nv.tokenize(normalized)
-        else:
-            ids, _missing = self._core.tokenize(item)
+        ids, _missing = nv.tokenize(normalized)
         if timed:
             with self._route_lock:
                 self._route_rates["native"] = (

@@ -45,18 +45,19 @@ def single_byte_values(vocab) -> set:
 
 def stdlib_text(vocab, min_bytes: int):
     """At least ``min_bytes`` raw bytes of standard-library files (fewer if
-    the library is smaller), dropping every line whose normalized form
-    holds a byte without a one-byte token.  A missing byte in a vocabulary
-    without an unk token sends a whole text to the host fallback, which a
-    measurement of the device path must not take.  Returns (text, number
-    of lines dropped)."""
+    the library is smaller).  With a ``vocab``, every line whose normalized
+    form holds a byte without a one-byte token is dropped: a missing byte
+    in a vocabulary without an unk token sends a whole text to the host
+    fallback, which a measurement of the device path must not take.  With
+    None every line is kept (the trainer scores missing bytes).  Returns
+    (text, number of lines dropped)."""
     root = os.path.dirname(os.__file__)
     paths = []
     for dirpath, dirnames, filenames in os.walk(root):
         dirnames.sort()
         paths += [os.path.join(dirpath, f) for f in filenames
                   if f.endswith((".py", ".txt"))]
-    ok = single_byte_values(vocab)
+    ok = single_byte_values(vocab) if vocab is not None else None
     kept, total, dropped = [], 0, 0
     for path in sorted(paths):
         try:
@@ -65,7 +66,7 @@ def stdlib_text(vocab, min_bytes: int):
         except OSError:
             continue
         for line in data.splitlines(keepends=True):
-            if set(vocab.normalize(line)) <= ok:
+            if ok is None or set(vocab.normalize(line)) <= ok:
                 kept.append(line)
                 total += len(line)
             else:

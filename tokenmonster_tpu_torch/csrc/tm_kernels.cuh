@@ -310,7 +310,11 @@ TM_HD void decide_at(const DecideArgs& a, int64_t p, int32_t fd) {
   const int32_t new_pos_rel = found ? (any_branch ? first_len[w3] : cur_len) : 1;
   const bool miss = !found && p < a.n;
   const bool has_tok = found || (miss && a.has_unk);
-  const int32_t delta_out = new_pos_rel < 1 ? 1 : (new_pos_rel > 63 ? 63 : new_pos_rel);
+  // an alternative branch may advance 0 bytes: at fd = 1 one of length 1
+  // is the virtual space alone (go/tokenmonster.go i += len1 - fd), and
+  // the chain goes on from (p, fd = 0); the JAX kernel clamps this to 1
+  const int32_t lo = any_branch && w3 > 0 ? 0 : 1;
+  const int32_t delta_out = new_pos_rel < lo ? lo : (new_pos_rel > 63 ? 63 : new_pos_rel);
   const uint32_t ctl = (uint32_t)delta_out | (is_b ? (1u << 6) | (1u << 8) : 0u) |
                        (has_tok ? 1u << 7 : 0u) | (miss ? 1u << 9 : 0u);
   const uint32_t tok = miss ? ((3u << 20) | (uint32_t)a.unk_token)

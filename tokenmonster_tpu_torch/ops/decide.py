@@ -11,6 +11,12 @@ Outputs (the ``ops/decision.py`` contract):
   ctl = delta(6b) | fd'<<6 | has_tok<<7 | has_del<<8 | miss<<9
   tok = dict idx (20b) | branch w3 (2b) << 20; w3 == 3 marks a literal id
 shape (N,) for a vocabulary without a delete token, else (2, N), row fd.
+
+One difference from the JAX kernel, which clamps every advance to at least
+one byte: at fd = 1 a branch to an alternative of length 1 (the virtual
+space alone) advances 0 bytes and leaves the chain at (p, fd = 0), as the
+native tokenizer does (``i += len1 - fd``).  The JAX package's device path
+parts from native there.
 """
 
 from __future__ import annotations
@@ -120,7 +126,11 @@ def decide_plain(m: torch.Tensor, mb: torch.Tensor | None,
                                                      cur_len), 1)
         miss = ~found & (pos < n)
         has_tok = found | (miss & tabs.has_unk)
-        ctl = (new_pos_rel.clamp(1, 63) | (is_b * ((1 << 6) | (1 << 8)))
+        # an alternative branch may advance 0 bytes (fd 1, an alternative
+        # that is the virtual space alone); the JAX kernel clamps it to 1
+        lo = torch.where(any_branch & (w3 > 0), 0, 1)
+        ctl = (torch.maximum(new_pos_rel, lo).clamp(max=63)
+               | (is_b * ((1 << 6) | (1 << 8)))
                | (has_tok * (1 << 7)) | (miss * (1 << 9)))
         tok = torch.where(miss, (3 << W3_SHIFT) | tabs.unk_token,
                           cur_idx | (w3 << W3_SHIFT))

@@ -11,8 +11,10 @@ record skip ``start_next`` on the device, so a whole text is enqueued with
 no host sync; the host reads the per-dispatch counts once at the end.
 
 A dispatch that overflows the fast record window retries once with the
-full window, which holds one record per scanned byte and so cannot
-overflow (every record advances at least one byte).  Two failures are
+full window, which cannot overflow: it holds one record per scanned byte,
+two with a delete token (every record advances at least one byte, except
+a step from fd 1 to fd 0 in place, which only follows one that advanced).
+Two failures are
 forced by the data and send the text to the exact native host tokenizer:
 a missing byte in a vocabulary without an unk token (a kept record that
 emits nothing; the native tokenizer confirms the missing byte), and a
@@ -29,8 +31,7 @@ import logging
 import numpy as np
 import torch
 
-from tokenmonster_tpu.core.tokenizer import tokenize as host_tokenize
-
+from ..native import native_vocab
 from . import _build
 from .decide import decide, resolve_device
 from .follow import follow
@@ -77,13 +78,16 @@ class GpuTokenizer:
     "full" record window, or "host" after a fallback) show which path the
     last call took; ``fallbacks`` counts, by cause ("missing_byte",
     "junction"), the texts the device path handed to the native tokenizer,
-    and ``host_fallbacks`` is their total."""
+    and ``host_fallbacks`` is their total.  ``hashmatch_tables`` (the JAX
+    package's numpy match tables of ``vocab``) shares one placement build;
+    None builds it here."""
 
-    def __init__(self, vocab, chunk: int = 2048, device="cuda"):
+    def __init__(self, vocab, chunk: int = 2048, device="cuda",
+                 hashmatch_tables=None):
         self.device = device = check_device(device)
         self.vocab = vocab
         self.chunk = chunk
-        self.tables = upload_tables(vocab, device=device)
+        self.tables = upload_tables(vocab, hashmatch_tables, device=device)
         self.last_mode = None
         self.fallbacks = {"missing_byte": 0, "junction": 0}
 
@@ -95,13 +99,15 @@ class GpuTokenizer:
     def host_fallbacks(self) -> int:
         return sum(self.fallbacks.values())
 
-    def _t_rec(self, full: bool) -> int:
-        """Record rows per lane: typical text emits about one record per 4
-        bytes (the fast window); the full window covers one per byte.  Same
-        values as the JAX engine, so both take the same retries."""
-        chunk = self.chunk
-        t_rec = (chunk + OVERLAP_SCAN if full
-                 else chunk * 3 // 8 + OVERLAP_SCAN + 64)
+    def _t_rec(self, full: bool, span: int | None = None) -> int:
+        """Record rows per lane of ``span`` bytes (default: a chunk):
+        typical text emits about one record per 4 bytes (the fast window,
+        the JAX engine's, so both take the same retries); the full window
+        covers every record a lane can emit."""
+        span = self.chunk if span is None else span
+        per_byte = 2 if self.tables.has_delete else 1
+        t_rec = ((span + OVERLAP_SCAN) * per_byte if full
+                 else span * 3 // 8 + OVERLAP_SCAN + 64)
         return -(-t_rec // 128) * 128
 
     def _plan(self, n: int):
@@ -137,36 +143,81 @@ class GpuTokenizer:
         bufs = torch.from_numpy(host).to(self.device)
         return n, L, [(bufs[i], n_i, lr) for i, (n_i, lr) in enumerate(slices)]
 
-    def _dispatch(self, buf, n: int, start0, last_lane: int, final: bool,
-                  n_lanes: int, full: bool):
-        """One dispatch, enqueued: (out, count, missing, start_next,
-        sync_ok, junction_ok, done_all) as device tensors."""
-        tabs = self.tables
+    @staticmethod
+    def _compact(recs, toks, buf, start0, last_lane: int, final: bool):
+        """The tokenizer's epilogue: (start_next, (out, count, missing,
+        sync_ok, junction_ok))."""
+        out, count, missing, start_next, sync_ok, junction_ok = (
+            device_stitch_compact(recs, toks, start0, last_lane, final,
+                                  recs.numel()))
+        return start_next, (out, count, missing, sync_ok, junction_ok)
+
+    def _records(self, buf, n: int, tabs, chunk: int, overlap: int,
+                 n_lanes: int, t_rec: int):
+        """Match, decide and follow on ``tabs``, enqueued: the (recs, toks,
+        done_all) of lanes that each scan ``chunk + overlap`` bytes."""
         if tabs.has_space:
             m, mb = match(buf, n, tabs)
         else:
             m, mb = match(buf, n, tabs), None
         ctl, tok = decide(m, mb, buf, n, tabs)
-        t_rec = self._t_rec(full)
-        recs, toks, done_all = follow(ctl, tok, n, self.chunk, n_lanes,
-                                      OVERLAP_SCAN, t_rec)
-        out, count, missing, start_next, sync_ok, junction_ok = (
-            device_stitch_compact(recs, toks, start0, last_lane, final,
-                                  t_rec * n_lanes))
-        return (out, count, missing, start_next, sync_ok, junction_ok,
-                done_all)
+        return follow(ctl, tok, n, chunk, n_lanes, overlap, t_rec)
 
-    def _run_staged(self, staged, full: bool = False):
+    def _dispatch(self, buf, n: int, start0, last_lane: int, final: bool,
+                  n_lanes: int, full: bool, tabs, epilogue, patch: dict):
+        """One dispatch, enqueued: the records on ``tabs``, the lanes of
+        ``patch`` ({lane: (recs, toks) columns}) replaced, then
+        ``epilogue``.  Returns (start_next, (*epilogue outputs, done_all))
+        as device tensors."""
+        recs, toks, done_all = self._records(buf, n, tabs, self.chunk,
+                                             OVERLAP_SCAN, n_lanes,
+                                             self._t_rec(full))
+        for lane, (rec_col, tok_col) in patch.items():
+            recs[:, lane] = rec_col
+            toks[:, lane] = tok_col
+        start_next, out = epilogue(recs, toks, buf, start0, last_lane, final)
+        return start_next, (*out, done_all)
+
+    def _run_staged(self, staged, full: bool, tabs, epilogue,
+                    patches: dict):
         """Enqueue every dispatch of a staged text, ``start_next`` carried
-        as a device tensor; no host sync."""
+        as a device tensor; no host sync.  ``tabs`` and ``epilogue``: this
+        tokenizer's tables and ``_compact``, or a candidate's tables and
+        the trainer's score epilogue; ``patches``: {dispatch: {lane:
+        columns}} of lanes to replace (the trainer's junction repair).
+        Returns per dispatch the epilogue's outputs and the follow's done
+        flag."""
         _n, L, bufs = staged
         start0 = torch.zeros((), dtype=torch.int64, device=self.device)
         outs = []
         for i, (buf, n_i, last_lane) in enumerate(bufs):
-            out, count, missing, start0, *flags = self._dispatch(
-                buf, n_i, start0, last_lane, i == len(bufs) - 1, L, full)
-            outs.append((out, count, missing, *flags))
+            start0, out = self._dispatch(buf, n_i, start0, last_lane,
+                                         i == len(bufs) - 1, L, full, tabs,
+                                         epilogue, patches.get(i, {}))
+            outs.append(out)
         return outs
+
+    def chain(self, tabs, data: bytes, at: int, span: int):
+        """The text's own record chain from state (``at``, fd 0) through
+        ``span`` bytes: the records on ``tabs`` of one lane in a dispatch of
+        its own, full record window.  Returns its (recs, toks) as int64
+        numpy arrays, positions relative to ``at``."""
+        seg = np.frombuffer(bytes(data[at:at + span + MARGIN]), np.uint8)
+        host = np.zeros(-(-(len(seg) + 64) // GRAIN) * GRAIN, np.uint8)
+        host[:len(seg)] = seg
+        buf = torch.from_numpy(host).to(self.device)
+        recs, toks, done = self._records(buf, len(seg), tabs, span, 0, 1,
+                                         self._t_rec(True, span))
+        out = torch.cat([recs[:, 0], toks[:, 0],
+                         done.reshape(1).to(torch.int32)]).cpu().numpy()
+        if not out[-1]:
+            raise RuntimeError("a lane overflowed the full record window, "
+                               "which holds every record a lane can emit: "
+                               "a fault of the decide or follow kernel")
+        t_rec = (len(out) - 1) // 2
+        recs, toks = out[:t_rec].astype(np.int64), out[t_rec:-1]
+        n_rec = int(((recs & 0xF) != 0).sum())
+        return recs[:n_rec] & 0xFFFFFFFF, toks[:n_rec].astype(np.int64)
 
     def tokenize_staged(self, staged, full: bool = False):
         """Run the device pipeline on a staged text and download the ids.
@@ -175,7 +226,7 @@ class GpuTokenizer:
         (an owned junction found no shared state) or "missing_byte" (a kept
         record emits nothing).  A fast-window overflow retries once on the
         full window."""
-        outs = self._run_staged(staged, full)
+        outs = self._run_staged(staged, full, self.tables, self._compact, {})
         k = len(outs)
         meta = torch.stack([torch.stack([o[j].long() for o in outs])
                             for j in range(1, 6)]).cpu()
@@ -200,13 +251,9 @@ class GpuTokenizer:
             return res
         if res == "window":
             raise RuntimeError("a lane overflowed the full record window, "
-                               "which holds one record per scanned byte: "
+                               "which holds every record a lane can emit: "
                                "a fault of the decide or follow kernel")
-        nv = self.vocab._native_vocab()
-        if nv is not None:
-            ids, missing = nv.tokenize(bytes(data))
-        else:
-            ids, missing = host_tokenize(self.vocab, bytes(data))
+        ids, missing = native_vocab(self.vocab).tokenize(bytes(data))
         if res == "missing_byte" and (missing == 0 or self.tables.has_unk):
             raise RuntimeError("a kept record emitted no token, but the text "
                                "has no byte the vocabulary lacks: a fault of "

@@ -1,6 +1,8 @@
-"""Junction sync search and dense compaction of the lane record streams.
+"""Junction sync search over the lane record streams, then their dense
+compaction (tokenizer) or chars-covered scores (trainer).
 
 Port of ``tokenmonster_tpu/ops/stitch.py::stitched_keep`` and
+``device_stitch_score`` (the trainer's epilogue) and of
 ``ops/pallas_stitch.py::device_stitch_compact`` as PyTorch ops (they were
 XLA in the JAX package), and of ``ops/pallas_stitch.py::
 make_compact_kernel``: the kernel is ``compact_kernel`` in
@@ -12,20 +14,63 @@ state shared by neighbouring lanes is an exact splice point
 (go/tokenmonster.go:1048-1277).  Dispatches chain through one bridge lane:
 the last lane of a dispatch is re-scanned as the next one's lane 0, and the
 number of its records to skip (``start_next``) flows on as a device tensor.
+Where a junction's splice does not hold, ``restart_point`` says where a
+lane of the text's own chain can take over (the trainer's repair,
+``parallel/score.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
 
-SYNC_PROBE = 16   # first records of the right lane probed for a shared state
 _REC_FD, _REC_TOK, _REC_DEL, _REC_MISS = 1, 2, 4, 8
+_NO_STATE = 1 << 62   # above every (position, fd) state
+
+
+def _junctions(recs: torch.Tensor, start0, last_lane: int, final: bool):
+    """The splice of every junction j (lanes j and j+1) of a (T, L) record
+    grid: (kstar, tstar, holds), each (L-1,).  The right lane's first
+    record whose state the left lane also reached is its record kstar and
+    the left lane's record tstar.  ``holds`` is True where the splice holds
+    or the junction is not owned."""
+    T, L = recs.shape
+    dev = recs.device
+    r = recs.long()
+    valid = (r & 0xF) != 0
+    # (position, fd) with fd 1 ordered first: the one step that keeps its
+    # position goes from fd 1 to fd 0, so a lane's states still rise
+    state = ((r >> 4) << 1) | (~r & _REC_FD)
+    # a lane's states rise strictly and its valid records come first, so
+    # each left lane is a sorted row to binary-search
+    left = torch.where(valid[:, :-1], state[:, :-1], _NO_STATE).T
+    right = state[:, 1:].T.contiguous()                      # (L-1, T)
+    at = torch.searchsorted(left.contiguous(), right).clamp(max=T - 1)
+    hit = (left.gather(1, at) == right) & valid[:, 1:].T
+    sync_exists = hit.any(dim=1)
+    kstar = hit.to(torch.int8).argmax(dim=1)                 # first hit
+    tstar = torch.where(sync_exists, at.gather(1, kstar[:, None])[:, 0], 0)
+    need = torch.arange(L - 1, device=dev) < (last_lane if final
+                                              else last_lane + 1)
+    # a splice holds only where the left lane already follows the text's
+    # chain, at or after its own splice record; with chunks longer than
+    # the overlap plus a token that always holds
+    joined = torch.cat([start0 - 1, kstar[:-1]])
+    holds = (sync_exists & (tstar >= joined)) | ~need
+    return kstar, tstar, holds
 
 
 def stitched_keep(recs: torch.Tensor, start0, last_lane: int, final: bool):
     """Junction sync search and keep ranges over a (T, L) record grid.
+
+    At each junction the right lane's first record whose state the left
+    lane also reached is the splice: the right lane keeps the records after
+    it, the left lane those up to its own record of that state.  Every
+    record of the right lane is searched, so the splice is found wherever
+    it lies within the left lane's overlap (the JAX package probes only
+    the right lane's first 16 records, a bound of its TPU layout).
 
     ``start0``: records to skip at the head of lane 0 (int or 0-dim
     tensor); ``last_lane``: last owned lane; ``final``: the last dispatch of
@@ -34,29 +79,17 @@ def stitched_keep(recs: torch.Tensor, start0, last_lane: int, final: bool):
     past ``last_lane``."""
     T, L = recs.shape
     dev = recs.device
-    r = recs.long()
-    flags = r & 0xF
+    flags = recs.long() & 0xF
     valid = flags != 0
-    state = ((r >> 4) << 1) | (r & _REC_FD)
     n_valid = valid.sum(dim=0)
     lane_ids = torch.arange(L, device=dev)
     start0 = torch.as_tensor(start0, dtype=torch.int64, device=dev).reshape(1)
     if L > 1:
-        k = min(SYNC_PROBE, T)
-        sa, va = state[:, :-1], valid[:, :-1]
-        sb, vb = state[:k, 1:], valid[:k, 1:]
-        hit = ((sa[:, None, :] == sb[None, :, :])
-               & va[:, None, :] & vb[None, :, :])            # (T, K, L-1)
-        hit_k = hit.any(dim=0)                               # (K, L-1)
-        sync_exists = hit_k.any(dim=0)
-        kstar = hit_k.to(torch.int8).argmax(dim=0)           # first k hit
-        hit_at_k = hit.gather(1, kstar[None, None, :].expand(T, 1, L - 1))
-        tstar = hit_at_k[:, 0, :].to(torch.int8).argmax(dim=0)
+        kstar, tstar, holds = _junctions(recs, start0, last_lane, final)
         end_rec = torch.cat([tstar, torch.zeros(1, dtype=torch.int64,
                                                 device=dev)])
         start_rec = torch.cat([start0, kstar + 1])
-        need = lane_ids[:-1] < (last_lane if final else last_lane + 1)
-        sync_ok = (sync_exists | ~need).all()
+        sync_ok = holds.all()
         start_next = kstar[L - 2] + 1
     else:
         end_rec = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -70,6 +103,36 @@ def stitched_keep(recs: torch.Tensor, start0, last_lane: int, final: bool):
             & (lane_ids[None, :] <= last_lane))
     end_m = torch.where(lane_ids <= last_lane, end_rec, -1)
     return flags, keep, start_next, sync_ok, start_rec, end_m
+
+
+def restart_point(recs: torch.Tensor, start0, last_lane: int, final: bool):
+    """Where the text's chain can be followed on at the first owned
+    junction of a (T, L) record grid whose splice does not hold: (g, at),
+    lane g the last lane that follows the chain and ``at`` the position of
+    its last record with fd 0, other than its last record, at or after its
+    splice with lane g-1.  A lane started at ``at`` with fd 0 follows the
+    chain from there (the state is the whole automaton state).  None when
+    every splice holds.  Reads back to the host."""
+    T, L = recs.shape
+    if L < 2:
+        return None
+    start0 = torch.as_tensor(start0, dtype=torch.int64,
+                             device=recs.device).reshape(1)
+    kstar, _tstar, holds = _junctions(recs, start0, last_lane, final)
+    bad = torch.nonzero(~holds)
+    if bad.numel() == 0:
+        return None
+    g = int(bad[0, 0])
+    joined = int(start0[0]) - 1 if g == 0 else int(kstar[g - 1])
+    col = recs[:, g].long().cpu().numpy()
+    t = np.arange(T)
+    ok = (((col & 0xF) != 0) & ((col & _REC_FD) == 0) & (t >= joined)
+          & (t < int(((col & 0xF) != 0).sum()) - 1))
+    if not ok.any():
+        raise RuntimeError(f"lane {g} holds no record with fd 0 past its "
+                           "splice to restart the chain from: a fault of "
+                           "the follow kernel")
+    return g, int(col[t[ok][-1]] >> 4)
 
 
 def compact_plain(recs: torch.Tensor, toks: torch.Tensor, s: torch.Tensor,
@@ -134,3 +197,48 @@ def device_stitch_compact(recs: torch.Tensor, toks: torch.Tensor, start0,
                   end_rec.clamp(max=T - 1).to(torch.int32),
                   q.to(torch.int32), out_cap)
     return out, ends[-1], missing, start_next, sync_ok & fast_ok, sync_ok
+
+
+def device_stitch_score(recs: torch.Tensor, emit: torch.Tensor,
+                        text: torch.Tensor, start0, last_lane: int,
+                        final: bool, n_ids: int, chunk: int,
+                        delete_token: int = 0):
+    """Trainer epilogue of one dispatch: chars-covered scores over the
+    spliced record stream, on its device with no host sync.  Port of
+    ``tokenmonster_tpu/ops/stitch.py::device_stitch_score`` (XLA there),
+    term by term: a kept record's token id gains the bytes it advanced
+    (a within-lane diff: the skipped sync record shares its state with the
+    left lane's splice record), the delete id gains 1 per delete emission,
+    a missing byte counts as one token and marks the byte before the
+    advance.
+
+    ``emit``: int32 (T, L) candidate id of each record; ``text``: the
+    dispatch buffer the record positions index.  Returns (scores int64
+    [n_ids], n_tokens, miss_mask int64 [256], start_next, sync_ok); ids
+    outside [0, n_ids) are dropped, as scatters in JAX drop them."""
+    flags, keep, start_next, sync_ok, _s, _e = stitched_keep(
+        recs, start0, last_lane, final)
+    T, L = recs.shape
+    dev = recs.device
+    pos = recs.long() >> 4
+    starts = torch.arange(L, device=dev) * chunk
+    prev = torch.cat([starts[None, :], pos[:-1]], dim=0)
+    covered = pos - prev
+
+    miss = ((flags & _REC_MISS) != 0) & keep
+    has_tok = ((flags & _REC_TOK) != 0) & keep & ~miss
+    has_del = ((flags & _REC_DEL) != 0) & keep
+    n_del = has_del.sum()
+    n_tokens = has_tok.sum() + n_del + miss.sum()
+
+    ids = emit.long() & 0xFFFFFFFF
+    ids = torch.where(has_tok & (ids < n_ids), ids, n_ids).reshape(-1)
+    scores = torch.zeros(n_ids + 1, dtype=torch.int64, device=dev)
+    scores.index_add_(0, ids, torch.where(has_tok, covered, 0).reshape(-1))
+    if 0 <= delete_token < n_ids:
+        scores[delete_token] += n_del
+    mb_pos = prev.clamp(0, text.numel() - 1)
+    mb = torch.where(miss, text[mb_pos].long(), 256).reshape(-1)
+    miss_mask = torch.zeros(257, dtype=torch.int64, device=dev)
+    miss_mask.index_add_(0, mb, miss.reshape(-1).long())
+    return scores[:n_ids], n_tokens, miss_mask[:256], start_next, sync_ok

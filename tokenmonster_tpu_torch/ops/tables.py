@@ -6,7 +6,8 @@ The numpy arrays are the JAX package's own: the hash-match planes come from
 ``tokenmonster_tpu.ops.hashmatch`` (imported, framework-free), and the few
 numpy helpers that live in jax-importing modules are copied below, each
 naming its original.  ``tests/test_torch_tables.py`` holds every copy equal
-to its original.  ``DeviceTables`` carries them to a device as buffers.
+to its original.  ``DeviceTables`` carries them to a device as buffers;
+``CandidateTables`` is one trainer candidate's masked view of a superset's.
 """
 
 from __future__ import annotations
@@ -24,42 +25,54 @@ from tokenmonster_tpu.ops.hashmatch import (HashMatchTables, build_hashmatch,
  D_OVF_BYTES, D_OVF_SCALARS, D_NSCALE, D_SCALE) = range(13)
 DESC_W = 32
 MAX_SCALE = DESC_W - D_SCALE
+MAX_ENTRIES = 1 << 20   # token words pack 20-bit dictionary indices
 
 
-def single_tbl(single: np.ndarray) -> np.ndarray:
-    """(2,128) int32 direct table of idx+1 by byte value.
-    Copy of ``tokenmonster_tpu/ops/pallas_match.py::_single_tbl`` (without
-    the trainer's per-candidate ``alive`` mask)."""
+def single_tbl(single: np.ndarray, alive: np.ndarray | None = None):
+    """(2,128) int32 direct table of idx+1 by byte value; with ``alive``
+    (bool per dictionary index) dead entries read 0.
+    Copy of ``tokenmonster_tpu/ops/pallas_match.py::_single_tbl`` (numpy
+    out)."""
     sv = single.astype(np.int64)
+    if alive is not None:
+        live = alive[np.maximum(sv, 0)]
+        sv = np.where((sv >= 0) & live, sv, -1)
     return (sv + 1).astype(np.int32).reshape(2, 128)
 
 
-def flat_tables(tables: HashMatchTables) -> tuple:
+def flat_tables(tables: HashMatchTables, alive: np.ndarray | None = None):
     """The match kernel's table tuple: composed field planes per class,
     displacement planes per class, the single-byte table and (delete-token
-    vocabularies) the space-stripped single-byte table.
+    vocabularies) the space-stripped single-byte table.  With ``alive``
+    the slots and singles of dead tokens have their indices zeroed: the
+    same placement then matches as the sub-dictionary of live tokens.
     Copy of ``tokenmonster_tpu/ops/pallas_match.py::flat_tables`` (numpy
-    out, without ``alive``)."""
-    args = [compose_fields(c) for c in tables.classes]
+    out)."""
+    args = [compose_fields(c, alive) for c in tables.classes]
     args += [disp_plane(c) for c in tables.classes]
-    args.append(single_tbl(tables.single))
+    args.append(single_tbl(tables.single, alive))
     if tables.has_space:
-        args.append(single_tbl(tables.space_single))
+        args.append(single_tbl(tables.space_single, alive))
     return tuple(args)
 
 
-def smem_scalars(tables: HashMatchTables) -> np.ndarray:
+def smem_scalars(tables: HashMatchTables,
+                 alive: np.ndarray | None = None) -> np.ndarray:
     """[space_empty+1, then per class per overflow key its main idx+1 (and
-    space idx+1 for merged tables)], each 0 when absent.
-    Copy of ``tokenmonster_tpu/ops/pallas_match.py::smem_scalars`` (without
-    ``alive``)."""
-    se = tables.space_empty
-    out = [se + 1 if se >= 0 else 0]
+    space idx+1 for merged tables)], each 0 when absent or dead in
+    ``alive``.
+    Copy of ``tokenmonster_tpu/ops/pallas_match.py::smem_scalars``."""
+    def live1(i):
+        if i < 0 or (alive is not None and not alive[i]):
+            return 0
+        return i + 1
+
+    out = [live1(tables.space_empty)]
     for c in tables.classes:
         for mi, si in zip(c.ovf_idx, c.ovf_idx_space):
-            out.append(mi + 1 if mi >= 0 else 0)
+            out.append(live1(mi))
             if tables.has_space:
-                out.append(si + 1 if si >= 0 else 0)
+                out.append(live1(si))
     return np.asarray(out, np.int32)
 
 
@@ -157,6 +170,22 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _vocab_config(tabs, vocab) -> None:
+    """The per-vocabulary kernel scalars: literal ids and row layout."""
+    tabs.lil_off = 2 if vocab.charset == 2 else 1
+    tabs.has_delete = vocab.delete_token != DOES_NOT_EXIST
+    tabs.has_unk = vocab.unk_token != DOES_NOT_EXIST
+    tabs.unk_token = int(vocab.unk_token) & 0xFFFFFF
+    tabs.delete_token = int(vocab.delete_token) & 0xFFFFFF
+    for name, tok in (("unk", tabs.unk_token), ("delete", tabs.delete_token)):
+        if getattr(tabs, f"has_{name}") and tok >= MAX_ENTRIES:
+            raise NotImplementedError(
+                f"{name} id {tok} does not fit the 20-bit literal field")
+    if tabs.has_space != tabs.has_delete:
+        raise ValueError("hash tables carry the space-stripped entries "
+                         "iff the vocabulary has a delete token")
+
+
 class DeviceTables(nn.Module):
     """Every table the four kernels read, as buffers of one module, so
     ``.to(device)`` moves them together.
@@ -169,7 +198,7 @@ class DeviceTables(nn.Module):
 
     def __init__(self, vocab, tables: HashMatchTables):
         super().__init__()
-        if len(vocab.tokens) >= 1 << 20:
+        if len(vocab.tokens) >= MAX_ENTRIES:
             raise NotImplementedError(
                 "token words pack 20-bit dictionary indices: vocabularies "
                 "of 2^20 entries or more are not supported yet")
@@ -196,19 +225,50 @@ class DeviceTables(nn.Module):
         self.max_len = len(len_cls) - 1
         self.idx1_bits = tables.classes[0].idx1_bits if n_cls else 21
         self.has_space = bool(tables.has_space)
-        self.lil_off = 2 if vocab.charset == 2 else 1
-        self.has_delete = vocab.delete_token != DOES_NOT_EXIST
-        self.has_unk = vocab.unk_token != DOES_NOT_EXIST
-        self.unk_token = int(vocab.unk_token) & 0xFFFFFF
-        self.delete_token = int(vocab.delete_token) & 0xFFFFFF
-        for name, tok in (("unk", self.unk_token),
-                          ("delete", self.delete_token)):
-            if getattr(self, f"has_{name}") and tok >= 1 << 20:
-                raise NotImplementedError(
-                    f"{name} id {tok} does not fit the 20-bit literal field")
-        if self.has_space != self.has_delete:
-            raise ValueError("hash tables carry the space-stripped entries "
-                             "iff the vocabulary has a delete token")
+        _vocab_config(self, vocab)
+
+
+class CandidateTables:
+    """A candidate vocabulary seen through its superset's ``DeviceTables``:
+    the superset's hash placement with the candidate's dead tokens masked
+    out, so the match and decide kernels run the candidate at superset
+    dictionary positions with no placement of its own (the trainer's
+    per-candidate masking; ``tokenmonster_tpu/train/score_helpers.py``).
+
+    Per candidate, uploaded to the superset's device: the alive-masked
+    ``fields``, ``single``, ``space_single`` and ``scalars``; the
+    candidate's ``meta`` planes and ``ids3`` at superset positions and its
+    ``bb``; its unk and delete ids.  Shared with the superset and never
+    written: ``disp``, ``desc``, ``len_cls``, ``ovf_keys`` and the host
+    geometry.  Every per-candidate tensor has its superset counterpart's
+    shape and type, or the constructor raises: the geometry never changes
+    between candidates."""
+
+    def __init__(self, base: DeviceTables, vocab, flat: tuple,
+                 scalars: np.ndarray, planes: np.ndarray, bb: np.ndarray,
+                 ids3_sup: np.ndarray):
+        for name in ("disp", "desc", "len_cls", "ovf_keys", "classes",
+                     "max_len", "idx1_bits", "has_space"):
+            setattr(self, name, getattr(base, name))
+        n_cls = len(base.classes)
+        space = (flat[2 * n_cls + 1] if base.has_space
+                 else np.zeros((2, 128), np.int32))
+        fields = (np.concatenate([flat[ci].reshape(-1) for ci in range(n_cls)])
+                  if n_cls else np.zeros(1, np.int32))
+        own = {"fields": fields, "single": flat[2 * n_cls].reshape(-1),
+               "space_single": space.reshape(-1), "scalars": scalars,
+               "meta": planes.reshape(2, -1),
+               "bb": bb.reshape(-1).astype(np.int32),
+               "ids3": ids3_sup.view(np.int32)}
+        for name, arr in own.items():
+            sup = getattr(base, name)
+            t = _t(arr)
+            if t.shape != sup.shape or t.dtype != sup.dtype:
+                raise ValueError(
+                    f"{name}: candidate {t.dtype}{tuple(t.shape)} differs "
+                    f"from the superset's {sup.dtype}{tuple(sup.shape)}")
+            setattr(self, name, t.to(sup.device))
+        _vocab_config(self, vocab)
 
 
 def space_prefix(vocab) -> bytes | None:
