@@ -16,9 +16,9 @@ The trainer phase distils a getalltokens pool of 8 MiB of real text toward
 32,000 ids: match, decide and follow on a candidate's masked superset
 tables against their plain versions, ``GpuCandidateScorer.score`` against
 the native scorer on the whole text, the junction repair on a forced run,
-and three seeded rounds of ``train_vocab`` on the card against the native
-backend (every scored candidate, the deletions of each round, the files
-written), with times.
+and three seeded rounds of the port's ``train_vocab`` on the card against
+its native backend (every scored candidate, the deletions of each round,
+the files written), with times.
 
 Phases print as they go; any failure raises and exits non-zero.  The line
 before the last is a JSON object of the kernels; the last line is
@@ -61,6 +61,21 @@ TRAIN_ROUNDS = 3
 TRAIN_SEED = 7
 TRAIN_KERNELS = ("match", "decide", "follow")
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# The least time the card could take for a kernel's work: its bytes (each
+# input read once, each output written once) over HBM3's 3.35 TB/s
+# (NVIDIA's data sheet for the H100 SXM), or its 32-bit integer operations
+# over the card's integer rate, whichever is larger.  That rate is 64
+# results per clock and SM for 32-bit integer add, multiply-add, shift and
+# logic at compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput), times 132 SMs at the 1.98 GHz boost clock.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 64 * 132 * 1.98e9
+LIBRARY = {                   # why no single PyTorch call computes it
+    "match": "no PyTorch op finds longest dictionary matches",
+    "decide": "no PyTorch op scores the ungreedy branches",
+    "follow": "a serial chain per lane; no PyTorch op follows one",
+    "compact": "a segmented gather of kept ranges; no one PyTorch op",
+}
 
 
 T0 = time.perf_counter()
@@ -73,6 +88,15 @@ def phase(name: str) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def require_self_contained(what: str) -> None:
+    """Fail if jax or any module of the JAX package ``tokenmonster_tpu``
+    was imported: the port stands alone."""
+    require("jax" not in sys.modules, f"{what} imported jax")
+    bad = sorted(m for m in sys.modules if m == "tokenmonster_tpu"
+                 or m.startswith("tokenmonster_tpu."))
+    require(not bad, f"{what} imported the JAX package: {bad}")
 
 
 def fnv1a64(ids) -> int:
@@ -124,11 +148,79 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def bound(nbytes: int, ops: int):
+    """(ms, "bytes" or "operations"): the least time for this work."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def match_work(buf, n: int, tabs):
+    """(bytes, operations) of one match call: the text, every match table
+    and the words written; three operations (multiply-add, shift, xor) per
+    window hashed, each position hashing up to max_len windows that end by
+    n."""
+    L = tabs.max_len
+    hashed = (n - L + 1) * L + L * (L - 1) // 2 if n >= L else n * (n + 1) // 2
+    tables = nbytes(tabs.fields, tabs.disp, tabs.single, tabs.space_single,
+                    tabs.scalars, tabs.desc, tabs.len_cls, tabs.ovf_keys)
+    out = 4 * buf.numel() * (2 if tabs.has_space else 1)
+    return buf.numel() + tables + out, 3 * hashed
+
+
+def decide_work(m, mb, buf, tabs):
+    """The match words and text read, the metadata planes, the ctl and tok
+    words written; about 60 operations per branch score set (6 branches of
+    about 10) per position and row."""
+    rows = 2 if mb is not None else 1
+    ins = nbytes(m, buf, tabs.meta, tabs.bb) + (nbytes(mb) if rows > 1 else 0)
+    return ins + 2 * 4 * rows * buf.numel(), 60 * rows * buf.numel()
+
+
+def follow_work(recs):
+    """The ctl and tok words of each step taken (this run's steps: its
+    nonzero records), the records and token words written; about 10
+    operations a step."""
+    steps = int((recs != 0).sum())
+    return 8 * steps + 2 * nbytes(recs), 10 * steps
+
+
+def compact_work(kept: int, lanes: int):
+    """The kept records and token words read, the lanes' ranges, the words
+    written; two operations a word."""
+    return 8 * kept + 12 * lanes + 4 * kept, 2 * kept
+
+
+def smem_plan(buf, n: int, tabs, lanes: int, chunk: int, t_rec: int) -> str:
+    """How the match and follow kernels use shared memory at these shapes,
+    as their launchers plan it on this card."""
+    import ctypes
+
+    from tokenmonster_tpu_torch.ops import _build
+    from tokenmonster_tpu_torch.ops.follow import window
+    from tokenmonster_tpu_torch.ops.match import match_args
+    lib = _build.load_library()
+    args = match_args(buf, n, tabs, buf, buf)     # the plan reads no output
+    disp = ctypes.c_int(0)
+    m_bytes = lib.tm_match_smem(ctypes.byref(args), ctypes.byref(disp))
+    fa = _build.FollowArgs(N=buf.numel(), rows=2 if tabs.has_delete else 1,
+                           n=n, chunk=chunk, overlap=128,
+                           W=window(chunk, 128), L=lanes, t_rec=t_rec)
+    tile = lib.tm_follow_tile(ctypes.byref(fa))
+    where = "shared" if disp.value else "global"
+    return (f"match {m_bytes} B per block, displacements "
+            f"({nbytes(tabs.disp)} B) in {where} memory, key filter "
+            f"{1 << tabs.filt_log2} bits; follow tile {tile} of the {fa.W}-position window per lane and row")
+
+
 def stage_pairs(vocab, raw: bytes, device, downstream: bool):
     """One main-path dispatch (512 lanes of 2048 bytes) of real text and,
     for each kernel on its path, (kernel call, plain call) closures on the
-    same inputs.  ``downstream`` adds follow and compact, which need the
-    dispatch to sync."""
+    same inputs, and its (bytes, operations).  ``downstream`` adds follow
+    and compact, which need the dispatch to sync."""
     from tokenmonster_tpu_torch.corpus import main_dispatch
     from tokenmonster_tpu_torch.ops import stitch
     from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
@@ -145,8 +237,10 @@ def stage_pairs(vocab, raw: bytes, device, downstream: bool):
         "decide": (lambda: decide(m, mb, buf, n, tabs),
                    lambda: decide_plain(m, mb, buf, n, tabs)),
     }
+    work = {"match": match_work(buf, n, tabs),
+            "decide": decide_work(m, mb, buf, tabs)}
     if not downstream:
-        return buf.numel(), pairs
+        return buf.numel(), pairs, work, None
     ctl, tok = decide(m, mb, buf, n, tabs)
     t_rec = tk._t_rec(False)
     recs, toks, done = follow(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec)
@@ -163,10 +257,14 @@ def stage_pairs(vocab, raw: bytes, device, downstream: bool):
     pairs["compact"] = (
         lambda: stitch.compact(recs, toks, s, e, q, cap),
         lambda: stitch.compact_plain(recs, toks, s, e, q, cap))
-    return buf.numel(), pairs
+    work["follow"] = follow_work(recs)
+    work["compact"] = compact_work(int(counts.sum()), LANES)
+    return (buf.numel(), pairs, work,
+            smem_plan(buf, n, tabs, LANES, CHUNK, t_rec))
 
 
 def compare(pairs, name: str) -> int:
+    """max_abs_err of the kernel against its plain version."""
     kernel, plain = pairs[name]
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -202,48 +300,25 @@ def _dir_bytes(path) -> dict:
     return out
 
 
-def trainer_phase(dev, card: str) -> dict:
-    """Candidate scoring and ``train_vocab`` on the card; returns, per
-    kernel on the trainer's path, its trainer-shape numbers."""
+def trainer_inputs(dev, card: str, work: str):
+    """The trainer phase's inputs: a getalltokens pool of TRAIN_BYTES of
+    standard-library text written to ``work``/pool.tok, its normalized
+    text, a ``GpuCandidateScorer`` armed on its superset, the first
+    dispatch of that text staged for it, and ``candidate()``, which makes
+    the next candidate as the master loop makes them: the singles, then a
+    seeded shuffle of the tokens cut to the effective vocab size."""
     import random
-    import shutil
-    import tempfile
-    from unittest import mock
+    from types import SimpleNamespace
 
-    from tokenmonster_tpu.core import capcode as cc
-    from tokenmonster_tpu.core.normalize import Normalizer
-    from tokenmonster_tpu.core.vocab import normalize_and_capcode
-    from tokenmonster_tpu.train import trainvocab as ref
-    from tokenmonster_tpu.train.getalltokens import (get_all_tokens,
-                                                     load_tokens_file,
-                                                     save_tokens_file)
+    from tokenmonster_tpu_torch.core import capcode as cc
+    from tokenmonster_tpu_torch.core.normalize import Normalizer
+    from tokenmonster_tpu_torch.core.vocab import normalize_and_capcode
     from tokenmonster_tpu_torch.corpus import stdlib_text
-    from tokenmonster_tpu_torch.native import load_native
-    from tokenmonster_tpu_torch.ops import _build
-    from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
-    from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
-    from tokenmonster_tpu_torch.ops.match import match, match_plain
-    from tokenmonster_tpu_torch.ops.scan import MARGIN, OVERLAP_SCAN
-    from tokenmonster_tpu_torch.parallel.score import score_strips
+    from tokenmonster_tpu_torch.ops.scan import MARGIN
     from tokenmonster_tpu_torch.train import trainvocab as port
-    from tokenmonster_tpu_torch.train.score_helpers import \
-        candidate_runtime_state
-
-    failed = []
-    load_native()
-
-    def native_score(cand, datasets):
-        """The native trainer scorer (``tm_tokenize_score``): the reference
-        ``CandidateScorer.score``."""
-        return ref.CandidateScorer(cand.charset, cand.using_capcode,
-                                   cand.normalizer.flag).score(cand, datasets)
-
-    def check(cond, msg: str) -> None:
-        """Record a failed check; the phase fails at its end, after every
-        check has run and printed."""
-        if not cond:
-            print(f"FAILED: {msg}", flush=True)
-            failed.append(msg)
+    from tokenmonster_tpu_torch.train.getalltokens import (get_all_tokens,
+                                                           load_tokens_file,
+                                                           save_tokens_file)
 
     raw, _dropped = stdlib_text(None, TRAIN_BYTES)
     t0 = time.perf_counter()
@@ -255,70 +330,119 @@ def trainer_phase(dev, card: str) -> dict:
           f"{TRAIN_MIN_OCCUR}) in {time.perf_counter() - t0:.1f} s")
     require(TRAIN_POOL[0] <= len(counter) <= TRAIN_POOL[1],
             f"pool of {len(counter)} outside {TRAIN_POOL}")
+    tok_path = os.path.join(work, "pool.tok")
+    save_tokens_file(tok_path, counter, char_table, header)
+    dic = load_tokens_file(tok_path)
+    capcode, norm_flag = dic["using_capcode"], dic["norm_flag"]
+    text = normalize_and_capcode(raw, capcode, Normalizer(norm_flag))
+
+    pool = port.superset_pool(tok_path)
+    sc = port.GpuCandidateScorer(dic["charset"], capcode, norm_flag,
+                                 device=dev)
+    sc.set_specials([])
+    t0 = time.perf_counter()
+    sc.prepare(pool)
+    torch.cuda.synchronize()
+    arm_s = time.perf_counter() - t0
+    print(f"superset: {len(sc._sup.vocab.tokens)} entries from a pool of "
+          f"{len(pool)} tokens, armed (vocabulary, CHD placement, "
+          f"upload) in {arm_s:.3f} s [{card}]")
+
+    singles = sorted({t for t in dic["tokens"] if len(t) == 1}
+                     | {bytes([b]) for b in (cc.DELETE_TOKEN,
+                                             cc.CHARACTER_TOKEN,
+                                             cc.WORD_TOKEN)})
+    multi = [t for t in pool if len(t) > 1]
+    rng = random.Random(TRAIN_SEED)
+
+    def candidate():
+        rng.shuffle(multi)
+        return sc.build(singles + multi[:TRAIN_VOCAB - len(singles)])
+
+    tk = sc._sup.tokenizer
+    _n, lanes, bufs = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
+    require(lanes == LANES, f"{lanes} lanes staged")
+    buf, n, _last = bufs[0]
+    return SimpleNamespace(raw=raw, tok_path=tok_path, norm_flag=norm_flag,
+                           text=text, sc=sc, tk=tk, buf=buf, n=n,
+                           t_rec=tk._t_rec(False), candidate=candidate)
+
+
+def masked_pairs(t, tabs):
+    """(kernel, plain) closures of the trainer's kernels on one
+    candidate's tables and ``trainer_inputs`` ``t``'s dispatch, on the
+    same inputs, and each one's (bytes, operations)."""
+    from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
+    from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
+    from tokenmonster_tpu_torch.ops.match import match, match_plain
+    from tokenmonster_tpu_torch.ops.scan import OVERLAP_SCAN
+    buf, n, chunk, t_rec = t.buf, t.n, t.tk.chunk, t.t_rec
+    m, mb = match(buf, n, tabs)
+    ctl, tok = decide(m, mb, buf, n, tabs)
+    recs = follow(ctl, tok, n, chunk, LANES, OVERLAP_SCAN, t_rec)[0]
+    pairs = {
+        "match": (lambda: match(buf, n, tabs),
+                  lambda: match_plain(buf, n, tabs)),
+        "decide": (lambda: decide(m, mb, buf, n, tabs),
+                   lambda: decide_plain(m, mb, buf, n, tabs)),
+        "follow": (lambda: follow(ctl, tok, n, chunk, LANES,
+                                  OVERLAP_SCAN, t_rec)[:2],
+                   lambda: follow_plain(ctl, tok, n, chunk, LANES,
+                                        OVERLAP_SCAN, t_rec)[:2]),
+    }
+    counts = {"match": match_work(buf, n, tabs),
+              "decide": decide_work(m, mb, buf, tabs),
+              "follow": follow_work(recs)}
+    return pairs, counts
+
+
+def trainer_phase(dev, card: str) -> dict:
+    """Candidate scoring and ``train_vocab`` on the card; returns, per
+    kernel on the trainer's path, its trainer-shape numbers."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from tokenmonster_tpu_torch.native import load_native
+    from tokenmonster_tpu_torch.ops import _build
+    from tokenmonster_tpu_torch.parallel.score import score_strips
+    from tokenmonster_tpu_torch.train import trainvocab as port
+    from tokenmonster_tpu_torch.train.score_helpers import \
+        candidate_runtime_state
+
+    failed = []
+    load_native()
+
+    def native_score(cand, datasets):
+        """The native trainer scorer (``tm_tokenize_score``): the port's
+        ``CandidateScorer(backend="native").score``."""
+        return port.CandidateScorer(cand.charset, cand.using_capcode,
+                                   cand.normalizer.flag).score(cand, datasets)
+
+    def check(cond, msg: str) -> None:
+        """Record a failed check; the phase fails at its end, after every
+        check has run and printed."""
+        if not cond:
+            print(f"FAILED: {msg}", flush=True)
+            failed.append(msg)
+
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_trainer_",
                             dir=os.path.join(ROOT, "build"))
     try:
-        tok_path = os.path.join(work, "pool.tok")
-        save_tokens_file(tok_path, counter, char_table, header)
-        dic = load_tokens_file(tok_path)
-        capcode, norm_flag = dic["using_capcode"], dic["norm_flag"]
-        text = normalize_and_capcode(raw, capcode, Normalizer(norm_flag))
-
-        pool = port.superset_pool(tok_path)
-        sc = port.GpuCandidateScorer(dic["charset"], capcode, norm_flag,
-                                     device=dev)
-        sc.set_specials([])
-        t0 = time.perf_counter()
-        sc.prepare(pool)
-        torch.cuda.synchronize()
-        arm_s = time.perf_counter() - t0
+        t = trainer_inputs(dev, card, work)
+        sc, tk, text = t.sc, t.tk, t.text
         sup = sc._sup
-        print(f"superset: {len(sup.vocab.tokens)} entries from a pool of "
-              f"{len(pool)} tokens, armed (vocabulary, CHD placement, "
-              f"upload) in {arm_s:.3f} s [{card}]")
-
-        # candidates as the master loop makes them: the singles, then a
-        # seeded shuffle of the tokens cut to the effective vocab size
-        singles = sorted({t for t in dic["tokens"] if len(t) == 1}
-                         | {bytes([b]) for b in (cc.DELETE_TOKEN,
-                                                 cc.CHARACTER_TOKEN,
-                                                 cc.WORD_TOKEN)})
-        multi = [t for t in pool if len(t) > 1]
-        rng = random.Random(TRAIN_SEED)
-        tk = sup.tokenizer
-        chunk = tk.chunk
-        _n, lanes, bufs = tk.stage(text[:(LANES - 1) * chunk + MARGIN])
-        require(lanes == LANES, f"{lanes} lanes staged")
-        buf, n, _last = bufs[0]
-        t_rec = tk._t_rec(False)
-
-        def masked_pairs(tabs):
-            """(kernel, plain) closures of the trainer's kernels on one
-            candidate's tables, on the same inputs."""
-            m, mb = match(buf, n, tabs)
-            ctl, tok = decide(m, mb, buf, n, tabs)
-            return {
-                "match": (lambda: match(buf, n, tabs),
-                          lambda: match_plain(buf, n, tabs)),
-                "decide": (lambda: decide(m, mb, buf, n, tabs),
-                           lambda: decide_plain(m, mb, buf, n, tabs)),
-                "follow": (lambda: follow(ctl, tok, n, chunk, LANES,
-                                          OVERLAP_SCAN, t_rec)[:2],
-                           lambda: follow_plain(ctl, tok, n, chunk, LANES,
-                                                OVERLAP_SCAN, t_rec)[:2]),
-            }
 
         errs = dict.fromkeys(TRAIN_KERNELS, 0)
         mask_ms, score_ms = [], []
         for ci in range(3):
-            rng.shuffle(multi)
-            cand = sc.build(singles + multi[:TRAIN_VOCAB - len(singles)])
+            cand = t.candidate()
             t0 = time.perf_counter()
             tabs = candidate_runtime_state(sup, cand)
             torch.cuda.synchronize()
             mask_ms.append((time.perf_counter() - t0) * 1e3)
-            cpairs = masked_pairs(tabs)
+            cpairs, cwork = masked_pairs(t, tabs)
             for name in TRAIN_KERNELS:
                 errs[name] = max(errs[name], compare(cpairs, name))
             pairs = cpairs         # timed below: the last candidate's
@@ -347,8 +471,8 @@ def trainer_phase(dev, card: str) -> dict:
 
         # the junction repair, forced: after an "x", a run of "a" with
         # tokens "aa", "a", "x" puts every lane out of the text's phase
-        rv = ref.CandidateScorer(1, 2, norm_flag).build([b"aa", b"a", b"x"])
-        rsc = port.GpuCandidateScorer(1, 2, norm_flag, device=dev)
+        rv = port.CandidateScorer(1, 2, t.norm_flag).build([b"aa", b"a", b"x"])
+        rsc = port.GpuCandidateScorer(1, 2, t.norm_flag, device=dev)
         rsc.set_specials([])
         rsc.prepare([b"aa", b"a", b"x"])
         run = [b"x" + b"a" * (300 << 10) + b"xaaxa" * 20]
@@ -384,12 +508,12 @@ def trainer_phase(dev, card: str) -> dict:
                 return res
 
         log = _RoundLog()
-        logger = logging.getLogger("tokenmonster_tpu.trainvocab")
+        logger = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
         logger.addHandler(log)
         logger.setLevel(logging.INFO)
 
         def config(backend):
-            return ref.TrainConfig(vocab_size=TRAIN_VOCAB, workers=2,
+            return port.TrainConfig(vocab_size=TRAIN_VOCAB, workers=2,
                                    fast=True, seed=TRAIN_SEED,
                                    max_rounds=TRAIN_ROUNDS, backend=backend)
 
@@ -398,14 +522,13 @@ def trainer_phase(dev, card: str) -> dict:
         _build.reset_launches()
         with mock.patch.object(port, "GpuCandidateScorer", Recording):
             rounds_cuda, cuda_s = _train(lambda: port.train_vocab(
-                raw, tok_path, res_cuda, config("cuda"), device=dev), log)
+                t.raw, t.tok_path, res_cuda, config("cuda"), device=dev),
+                log)
         torch.cuda.synchronize()
         launches = dict(_build.launches)
-        rounds_native, native_s = _train(lambda: ref.train_vocab(
-            raw, tok_path, res_native, config("native")), log)
+        rounds_native, native_s = _train(lambda: port.train_vocab(
+            t.raw, t.tok_path, res_native, config("native")), log)
         logger.removeHandler(log)
-        check(ref.CandidateScorer is port.CandidateScorer,
-              "train_vocab left its scorer bound in the reference")
         for line in rounds_cuda:
             print(f"cuda   {line}")
         check(rounds_cuda == rounds_native,
@@ -439,14 +562,21 @@ def trainer_phase(dev, card: str) -> dict:
     out = {}
     for name in TRAIN_KERNELS:
         kernel, plain = pairs[name]
+        b_ms, b_by = bound(*cwork[name])
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, calls=1)
         out[name] = {"trainer_launches": launches[name],
-                     "trainer_max_abs_err": errs[name],
-                     "trainer_ms": cuda_ms(kernel),
-                     "trainer_plain_ms": cuda_ms(plain, calls=1)}
-        print(f"{name}: trainer shapes kernel {out[name]['trainer_ms']:.4f}"
-              f" ms, plain {out[name]['trainer_plain_ms']:.4f} ms "
-              f"(N={buf.numel()}, {LANES} lanes, masked superset of "
-              f"{len(sup.vocab.tokens)}) [{card}]")
+                     "trainer_max_abs_err": errs[name], "trainer_ms": ms,
+                     "trainer_plain_ms": plain_ms,
+                     "trainer_bound_ms": b_ms, "trainer_bound_by": b_by,
+                     "trainer_roofline_share": b_ms / ms}
+        print(f"{name}: trainer shapes kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{cwork[name][0]} B, {cwork[name][1]} ops), roofline "
+              f"{100 * b_ms / ms:.2f}% (N={t.buf.numel()}, {LANES} lanes, "
+              f"masked superset of {len(sup.vocab.tokens)}) [{card}]")
+    print(f"shared memory at trainer shapes: "
+          f"{smem_plan(t.buf, t.n, tabs, LANES, tk.chunk, t.t_rec)}")
     require(not failed, f"trainer phase: {len(failed)} checks failed")
     return out
 
@@ -469,11 +599,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     import tokenmonster_tpu_torch as tt
-    from tokenmonster_tpu.core.vocab import Vocab
-    from tokenmonster_tpu.native import NativeVocab
+    from tokenmonster_tpu_torch.core.vocab import Vocab
     from tokenmonster_tpu_torch.corpus import one_row_vocab, stdlib_text
+    from tokenmonster_tpu_torch.native import NativeVocab
     from tokenmonster_tpu_torch.ops import _build
-    require("jax" not in sys.modules, "the port imported jax")
+    require_self_contained("the port")
 
     phase("build")
     t0 = time.perf_counter()
@@ -487,12 +617,13 @@ def main() -> int:
     raw, dropped = stdlib_text(core, MAIN_BYTES)
     require(len(raw) >= MAIN_BYTES, f"only {len(raw)} bytes of text")
     errs = {}
-    N, pairs = stage_pairs(core, raw, dev, downstream=True)
+    N, pairs, work, plan = stage_pairs(core, raw, dev, downstream=True)
     for name in TPU_KERNELS:
         errs[name] = compare(pairs, name)
         print(f"{name}: realtext-32000 two rows, N={N}, {LANES} lanes x "
               f"{CHUNK}: max_abs_err {errs[name]}")
-    N1, pairs1 = stage_pairs(one_row_vocab(core), raw, dev, downstream=False)
+    N1, pairs1, _work1, _plan1 = stage_pairs(one_row_vocab(core), raw, dev,
+                                             downstream=False)
     for name in pairs1:
         err = compare(pairs1, name)
         print(f"{name}: capcode-0 one row, N={N1}: max_abs_err {err}")
@@ -574,13 +705,20 @@ def main() -> int:
         kernel, plain = pairs[name]
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain, calls=1)
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(N={N}, {LANES} lanes) [{card}]")
+        b_ms, b_by = bound(*work[name])
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}, {work[name][0]} B, "
+              f"{work[name][1]} ops), roofline {100 * b_ms / ms:.2f}% "
+              f"(N={N}, {LANES} lanes; no library call: {LIBRARY[name]}) "
+              f"[{card}]")
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": TPU_KERNELS[name],
                         "launches": launches[name],
                         "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "roofline_share": b_ms / ms,
+                        "library_ms": None})
+    print(f"shared memory at main-path shapes: {plan}")
     staged = tk.stage(norm)
     tk.tokenize_staged(staged)
     chain_s = host_seconds(lambda: tk._run_staged(staged, False, tk.tables,
@@ -612,7 +750,7 @@ def main() -> int:
 
     phase("trainer: candidate scoring and train_vocab")
     trainer = trainer_phase(dev, card)
-    require("jax" not in sys.modules, "the trainer imported jax")
+    require_self_contained("the trainer")
     for k in kernels:
         k.update(trainer.get(k["name"], {}))
 

@@ -15,6 +15,7 @@ import tokenmonster_tpu
 import tokenmonster_tpu_torch
 
 from torch_cases import ENGLISH, EXAMPLES, ROOT
+from torch_cases import jax_native  # noqa: F401 (autouse fixture)
 
 VOCAB = os.path.join(EXAMPLES, "realtext-1024-fast.vocab")
 

@@ -8,26 +8,28 @@ card has none.
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import ctypes
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from tokenmonster_tpu.core.vocab import Vocab
 from tokenmonster_tpu_torch.corpus import (main_dispatch, one_row_vocab,
                                            stdlib_text)
-from tokenmonster_tpu_torch.native import native_vocab
+from tokenmonster_tpu_torch.core.vocab import Vocab
+from tokenmonster_tpu_torch.native import NativeVocab
 from tokenmonster_tpu_torch.ops import _build, stitch
 from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
 from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
-from tokenmonster_tpu_torch.ops.match import match, match_plain
+from tokenmonster_tpu_torch.ops.follow import window as follow_window
+from tokenmonster_tpu_torch.ops.match import match, match_args, match_plain
 from tokenmonster_tpu_torch.ops.scan import MARGIN, OVERLAP_SCAN, GpuTokenizer
 from tokenmonster_tpu_torch.train.score_helpers import candidate_runtime_state
 from tokenmonster_tpu_torch.train.trainvocab import GpuCandidateScorer
 
-from torch_cases import (ZERO_STEP_TEXT, ZERO_STEP_TOKENS, native_score,
-                         zero_step_vocab)
+from torch_cases import (LONG_KEYS, ZERO_STEP_TEXT, ZERO_STEP_TOKENS,
+                         edge_text, edge_vocab, native_score, zero_step_vocab)
 
 pytestmark = pytest.mark.gpu
 
@@ -70,6 +72,131 @@ def test_match_kernel_equals_plain(dispatch):
     for g, w in zip(*((got, want) if tk.tables.has_space
                       else ((got,), (want,)))):
         _equal(g, w)
+
+
+def _match_tile():
+    """(positions per warp tile, positions per block and round) of the
+    match kernel, as the library reports them."""
+    block = ctypes.c_int(0)
+    tile = _build.load_library().tm_match_tile(ctypes.byref(block))
+    return tile, block.value
+
+
+@pytest.mark.parametrize("capcode", [0, 1])
+def test_match_kernel_edges_equal_plain(cuda, capcode):
+    """Overflow keys, 40-byte keys and their near misses; 40-byte keys
+    across every third warp-tile boundary and every block boundary of the
+    kernel, each starting 17 positions before it; a buffer whose last
+    tile is partial and whose pointer is not word-aligned (the kernel's
+    byte loads)."""
+    tile, block = _match_tile()
+    assert block % tile == 0 and tile > len(LONG_KEYS[0])
+    v = edge_vocab(capcode)
+    tk = GpuTokenizer(v, device=cuda)
+    data = bytearray(edge_text(3 * block + 1000, seed=2 + capcode))
+    n = len(data) - 50
+    edges = sorted(set(range(tile, n - 40, 3 * tile))
+                   | set(range(block, n - 40, block)))
+    at = np.array(edges) - 17
+    for a in at:
+        data[a:a + 40] = LONG_KEYS[0]
+    for offset in (0, 1):
+        host = torch.zeros(len(data) + offset, dtype=torch.uint8)
+        host[offset:] = torch.tensor(list(data), dtype=torch.uint8)
+        buf = host.to(cuda)[offset:]
+        assert buf.data_ptr() % 4 == offset
+        got = match(buf, n, tk.tables)
+        want = match_plain(buf, n, tk.tables)
+        torch.cuda.synchronize()
+        for g, w in zip(*((got, want) if tk.tables.has_space
+                          else ((got,), (want,)))):
+            _equal(g, w)
+        m = (want[0] if tk.tables.has_space else want).cpu().numpy()
+        assert ((m[at] & 63) == 40).all()
+
+
+@pytest.mark.parametrize("capcode", [0, 1])
+def test_match_kernel_with_many_lengths_per_position(cuda, capcode):
+    """Runs of one byte under tokens of every run length 1..40 (and their
+    space-prefixed forms): every position has dozens of lengths to probe,
+    more than a warp's shared probe list holds, so lanes also probe their
+    own after it."""
+    toks = [b"x" * k for k in range(1, 41)] + [b" " + b"x" * k
+                                              for k in range(1, 40)]
+    v = Vocab()
+    v._generate(tokens=toks + [b" ", b"y"] + ([b"\x7f"] if capcode else []),
+                charset=1, normalize_string="none", using_capcode=capcode,
+                level=5, reset_token_ids=True)
+    tk = GpuTokenizer(v, device=cuda)
+    rng = np.random.default_rng(capcode)
+    data = b"".join(b"x" * int(k) + b" y"[:int(rng.integers(1, 3))]
+                    for k in rng.integers(30, 200, 400))
+    buf = torch.tensor(list(data), dtype=torch.uint8, device=cuda)
+    got = match(buf, len(data), tk.tables)
+    want = match_plain(buf, len(data), tk.tables)
+    torch.cuda.synchronize()
+    for g, w in zip(*((got, want) if tk.tables.has_space
+                      else ((got,), (want,)))):
+        _equal(g, w)
+    m = want[0] if tk.tables.has_space else want
+    assert ((m & 63) == 40).sum() > 1000
+
+
+def test_match_kernel_with_displacements_in_global_memory(cuda):
+    """A vocabulary whose displacement planes do not fit in shared memory
+    beside the filter: the kernel reads them from global memory."""
+    rng = np.random.default_rng(5)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    toks = {bytes(letters[rng.integers(0, 26, int(k))])
+            for k in rng.integers(5, 15, 400_000)}
+    v = Vocab()
+    v._generate(tokens=sorted(toks) + [bytes([b]) for b in letters],
+                charset=1, normalize_string="none", using_capcode=0, level=5,
+                reset_token_ids=True)
+    tk = GpuTokenizer(v, device=cuda)
+    data = bytes(letters[rng.integers(0, 26, 200_000)])
+    buf = torch.tensor(list(data), dtype=torch.uint8, device=cuda)
+    m_out = torch.empty(len(data), dtype=torch.int32, device=cuda)
+    args = match_args(buf, len(data), tk.tables, m_out, m_out)
+    disp_smem = ctypes.c_int(-1)
+    assert _build.load_library().tm_match_smem(ctypes.byref(args),
+                                               ctypes.byref(disp_smem)) > 0
+    assert disp_smem.value == 0, tk.tables.disp.numel()
+    got = match(buf, len(data), tk.tables)
+    _equal(got, match_plain(buf, len(data), tk.tables))
+
+
+@pytest.mark.parametrize("lanes,chunk", [(1, 70_000), (6, 30_000)])
+def test_follow_kernel_walks_windows_longer_than_its_tile(cuda, lanes,
+                                                          chunk):
+    """Lanes whose windows exceed the shared-memory tile (one lane of a
+    long span, as GpuTokenizer.chain runs a repair; six lanes, so two
+    blocks, one partly filled), on two fd rows, with the full record
+    window: refilled tile by tile, equal to the plain version."""
+    v = _real32k()
+    raw, _dropped = stdlib_text(v, lanes * chunk + 4096)
+    data = v.normalize(raw)[:lanes * chunk + 2048]
+    tk = GpuTokenizer(v, device=cuda)
+    buf = torch.zeros(lanes * chunk + 4096, dtype=torch.uint8, device=cuda)
+    buf[:len(data)] = torch.tensor(list(data), dtype=torch.uint8,
+                                   device=cuda)
+    n = len(data)
+    m, mb = match(buf, n, tk.tables)
+    ctl, tok = decide(m, mb, buf, n, tk.tables)
+    t_rec = tk._t_rec(True, chunk)
+    args = _build.FollowArgs(N=buf.numel(), rows=2, n=n, chunk=chunk,
+                             overlap=OVERLAP_SCAN,
+                             W=follow_window(chunk, OVERLAP_SCAN), L=lanes,
+                             t_rec=t_rec)
+    tile = _build.load_library().tm_follow_tile(ctypes.byref(args))
+    assert 0 < tile < args.W
+    got = follow(ctl, tok, n, chunk, lanes, OVERLAP_SCAN, t_rec)
+    want = follow_plain(ctl, tok, n, chunk, lanes, OVERLAP_SCAN, t_rec)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    assert int(got[2]) == 1
+    n_rec = int(((got[0][:, 0] & 0xF) != 0).sum())
+    assert n_rec > tile // 8
 
 
 def _decisions(tk, buf, n):
@@ -122,7 +249,7 @@ def test_tokenizer_on_card_equals_native(cuda):
     assert len(tk._plan(len(data))[1]) >= 3
     _build.reset_launches()
     ids, missing = tk.tokenize(data)
-    want, wmiss = native_vocab(v).tokenize(data)
+    want, wmiss = NativeVocab(v).tokenize(data)
     np.testing.assert_array_equal(ids, want)
     assert missing == wmiss == 0
     assert tk.fallbacks == {"missing_byte": 0, "junction": 0}

@@ -16,11 +16,12 @@ import torch
 from tokenmonster_tpu_torch.ops import _build, stitch
 from tokenmonster_tpu_torch.ops.decide import decide_plain
 from tokenmonster_tpu_torch.ops.follow import follow_plain, window
-from tokenmonster_tpu_torch.ops.match import match_plain
+from tokenmonster_tpu_torch.ops.match import match_args, match_plain
 from tokenmonster_tpu_torch.ops.tables import upload_tables
 
-from torch_cases import (OVERLAP, VOCABS, ZERO_STEP_TEXT, hashmatch_tables,
-                         text_for, zero_step_vocab)
+from torch_cases import (OVERLAP, VOCABS, ZERO_STEP_TEXT, edge_text,
+                         edge_vocab, hashmatch_tables, text_for,
+                         zero_step_vocab)
 
 N = 4096
 
@@ -35,9 +36,11 @@ def host_lib(tmp_path_factory):
                     "-Werror", "-o", so, src], check=True)
     lib = ctypes.CDLL(so)
     for name, struct in (("match", _build.MatchArgs),
-                         ("follow", _build.FollowArgs),
-                         ("compact", _build.CompactArgs)):
-        getattr(lib, f"tm_{name}_host").argtypes = [ctypes.POINTER(struct)]
+                         ("follow", _build.FollowArgs)):
+        getattr(lib, f"tm_{name}_host").argtypes = [ctypes.POINTER(struct),
+                                                    ctypes.c_int]
+    lib.tm_match_tile.restype = ctypes.c_int
+    lib.tm_compact_host.argtypes = [ctypes.POINTER(_build.CompactArgs)]
     lib.tm_decide_host.argtypes = [ctypes.POINTER(_build.DecideArgs),
                                    ctypes.c_int]
     return lib
@@ -60,23 +63,45 @@ def stages(request):
     return name, dt, buf, n, m, mb, ctl, tok
 
 
+def _match_host(lib, dt, buf, n, tile):
+    got_m = torch.full((buf.numel(),), -1, dtype=torch.int32)
+    got_mb = torch.full((buf.numel(),), -1, dtype=torch.int32)
+    args = match_args(buf, n, dt, got_m, got_mb)
+    lib.tm_match_host(ctypes.byref(args), tile)
+    return got_m, got_mb
+
+
 def test_match_host_equals_plain(host_lib, stages):
+    """Text tiles as the kernel stages them (its warp tile, and 61: tile
+    boundaries at other offsets inside matches), the key filter, the
+    32-bit key compares."""
     _name, dt, buf, n, m, mb, _ctl, _tok = stages
-    got_m = torch.full((N,), -1, dtype=torch.int32)
-    got_mb = torch.full((N,), -1, dtype=torch.int32)
-    args = _build.MatchArgs(
-        text=buf.data_ptr(), fields=dt.fields.data_ptr(),
-        disp=dt.disp.data_ptr(), single=dt.single.data_ptr(),
-        space_single=dt.space_single.data_ptr(),
-        scalars=dt.scalars.data_ptr(), desc=dt.desc.data_ptr(),
-        len_cls=dt.len_cls.data_ptr(), ovf_keys=dt.ovf_keys.data_ptr(),
-        m=got_m.data_ptr(), mb=got_mb.data_ptr(), N=N, n=n,
-        max_len=dt.max_len, idx1_bits=dt.idx1_bits,
-        has_space=int(dt.has_space), lil_off=dt.lil_off)
-    host_lib.tm_match_host(ctypes.byref(args))
-    assert torch.equal(got_m, m)
-    if mb is not None:
-        assert torch.equal(got_mb, mb)
+    for tile in (host_lib.tm_match_tile(), 61):
+        got_m, got_mb = _match_host(host_lib, dt, buf, n, tile)
+        assert torch.equal(got_m, m)
+        if mb is not None:
+            assert torch.equal(got_mb, mb)
+
+
+@pytest.mark.parametrize("capcode", [0, 1])
+def test_match_host_edges_equal_plain(host_lib, capcode):
+    """Overflow keys (full-hash twins), 40-byte keys and their near misses,
+    at every offset of tiles of the kernel's warp tile, 61 and 37
+    positions."""
+    v = edge_vocab(capcode)
+    dt = upload_tables(v, hashmatch_tables(v), "cpu")
+    assert dt.max_len == 40 and any(c.ovf_keys for c in dt.classes)
+    data = edge_text(N - 100, seed=capcode)
+    buf = torch.zeros(N, dtype=torch.uint8)
+    buf[:len(data)] = torch.tensor(list(data), dtype=torch.uint8)
+    mm = match_plain(buf, len(data), dt)
+    m, mb = mm if dt.has_space else (mm, None)
+    assert ((m & 63) == 40).any() and ((m & 63) == 6).any()
+    for tile in (host_lib.tm_match_tile(), 61, 37):
+        got_m, got_mb = _match_host(host_lib, dt, buf, len(data), tile)
+        assert torch.equal(got_m, m)
+        if mb is not None:
+            assert torch.equal(got_mb, mb)
 
 
 def _decide_host(lib, dt, buf, n, m, mb):
@@ -125,7 +150,7 @@ def test_zero_advance_step_host_equals_plain(host_lib):
     assert ((pos[1:] == pos[:-1]) & (want[0][1:] != 0)).any()
 
 
-def _follow_host(lib, ctl, tok, n, chunk, L, t_rec):
+def _follow_host(lib, ctl, tok, n, chunk, L, t_rec, tw=None):
     recs = torch.full((t_rec, L), -1, dtype=torch.int32)
     toks = torch.full((t_rec, L), -1, dtype=torch.int32)
     done = torch.ones(1, dtype=torch.int32)
@@ -134,7 +159,7 @@ def _follow_host(lib, ctl, tok, n, chunk, L, t_rec):
         toks=toks.data_ptr(), done_all=done.data_ptr(), N=ctl.shape[-1],
         rows=1 if ctl.dim() == 1 else ctl.shape[0], n=n, chunk=chunk,
         overlap=OVERLAP, W=window(chunk, OVERLAP), L=L, t_rec=t_rec)
-    lib.tm_follow_host(ctypes.byref(args))
+    lib.tm_follow_host(ctypes.byref(args), tw or args.W)
     return recs, toks, done[0]
 
 
@@ -146,6 +171,21 @@ def test_follow_host_equals_plain(host_lib, stages, chunk, L, t_rec):
     got = _follow_host(host_lib, ctl, tok, n, chunk, L, t_rec)
     for w, g in zip(want, got):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("tw", [1, 7, 100])
+def test_follow_host_tiles_equal_plain(host_lib, stages, tw):
+    """Lane windows walked in tiles of ``tw`` positions, refilled from
+    where each lane stopped, as the kernel walks windows longer than its
+    shared memory (a bridge or repair lane): the records of the whole
+    window, and a full-window retry's geometry (t_rec records a byte)."""
+    _name, _dt, _buf, n, _m, _mb, ctl, tok = stages
+    for chunk, L, t_rec in ((32, 128, 256), (1024, 3, 2304)):
+        want = follow_plain(ctl, tok, n, chunk, L, OVERLAP, t_rec)
+        got = _follow_host(host_lib, ctl, tok, n, chunk, L, t_rec, tw)
+        for w, g in zip(want, got):
+            assert torch.equal(g, w)
+        assert int(want[2]) == 1
 
 
 @pytest.mark.parametrize("start0,final", [(0, True), (2, False)])

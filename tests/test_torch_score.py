@@ -36,8 +36,10 @@ from tokenmonster_tpu_torch.train import score_helpers
 from tokenmonster_tpu_torch.train.trainvocab import GpuCandidateScorer
 
 from torch_cases import (OVERLAP, VOCABS, candidate, decisions, drop_sets,
-                         hashmatch_tables, native_score, port_ctl, text_for,
-                         u32, with_unk)
+                         hashmatch_tables, native_score,
+                         port_ctl, text_for, u32, with_unk)
+from torch_cases import jax_native  # noqa: F401 (autouse fixture)
+
 
 N = 2048        # one JAX tile grain
 KINDS = ["capcode", "plain", "unk", "utf16"]

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from tokenmonster_tpu.ops import pallas_decide, pallas_match
+from tokenmonster_tpu_torch.ops import hashmatch as hm
 from tokenmonster_tpu_torch.ops import tables as ttab
 
 from torch_cases import VOCABS, hashmatch_tables
@@ -59,10 +60,13 @@ def test_device_tables_carry_the_arrays(case):
         off = desc[ci, ttab.D_FOFF]
         np.testing.assert_array_equal(
             dt.fields.numpy()[off:off + planes.size], planes)
+        # the packed words of the displacement plane, without its padding
         dp = np.asarray(flat[n_cls + ci]).reshape(-1)
+        words = -(-max(2, 1 << c.b_bits) // 2)
+        assert not dp[words:].any()
         doff = desc[ci, ttab.D_DOFF]
-        np.testing.assert_array_equal(dt.disp.numpy()[doff:doff + dp.size],
-                                      dp)
+        np.testing.assert_array_equal(dt.disp.numpy()[doff:doff + words],
+                                      dp[:words])
         assert dt.len_cls[c.length] == ci
         assert desc[ci, ttab.D_S] == c.S
         assert (int(desc[ci, ttab.D_SALT]) & 0xFFFFFFFF) == c.salt
@@ -75,3 +79,27 @@ def test_device_tables_carry_the_arrays(case):
     np.testing.assert_array_equal(dt.bb.numpy(), bb.reshape(-1))
     assert dt.has_delete == (v.delete_token != 0xFFFFFF)
     assert dt.lil_off == (2 if v.charset == 2 else 1)
+    assert dt.disp.numel() == sum(-(-max(2, 1 << c.b_bits) // 2)
+                                  for c in tabs.classes)
+
+
+def test_key_filter_holds_every_key(case):
+    """The match kernel skips a length with either filter bit clear, so
+    both bits of every key of every class must be set; most others are
+    clear."""
+    v, tabs = case
+    words, log2 = ttab.key_filter(tabs)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    assert len(bits) == 1 << log2 and 5 <= log2 <= ttab.FILTER_MAX_LOG2
+    n_keys = 0
+    for c in tabs.classes:
+        keys = [bytes(k) for k in c.slot_keys[c.occupied]] + list(c.ovf_keys)
+        for k in keys:
+            x1 = (((int(hm.poly_hash(k)) + c.length * ttab.FILTER_LEN_MULT)
+                   * ttab.FILTER_MULT) & 0xFFFFFFFF)
+            x2 = ((x1 ^ (x1 >> 15)) * ttab.FILTER_MULT2) & 0xFFFFFFFF
+            assert bits[x1 >> (32 - log2)] and bits[x2 >> (32 - log2)], k
+        n_keys += len(keys)
+    assert 0 < bits.sum() <= 2 * n_keys
+    if len(bits) >= 16 * n_keys:
+        assert bits.mean() <= 1 / 8

@@ -3,9 +3,11 @@ versions of the match, decide and follow kernels, the PyTorch score
 epilogue) against the JAX ``CandidateScorer``'s Pallas path (interpret
 mode) and the native scorer on the torch_cases vocabularies, its junction
 repairs on the device and its refusals; and ``train_vocab(backend="cuda",
-device="cpu")`` against the reference loop with ``backend="native"``:
-the same deletions every round, the same files, the same best vocabulary.
-Tolerance 0 throughout."""
+device="cpu")``, the port's own loop, against the JAX package's loop
+with ``backend="native"``: the same deletions every round, the same files,
+the same best vocabulary.  Tolerance 0 throughout.  The JAX scorer and
+loop reach the JAX package's native library: every test here loads it
+race-safely first (``torch_cases.heal_jax_native``)."""
 
 import logging
 import os
@@ -24,8 +26,11 @@ from tokenmonster_tpu_torch.train import trainvocab as port
 from tokenmonster_tpu_torch.train.trainvocab import GpuCandidateScorer
 
 from torch_cases import (VOCABS, ZERO_STEP_TEXT, ZERO_STEP_TOKENS, candidate,
-                         drop_sets, native_score, text_for, with_unk,
-                         zero_step_vocab)
+                         drop_sets, heal_jax_native, native_score, text_for,
+                         with_unk, zero_step_vocab)
+from torch_cases import jax_native  # noqa: F401 (autouse fixture)
+
+LOGGERS = ("tokenmonster_tpu.trainvocab", "tokenmonster_tpu_torch.trainvocab")
 
 
 def _scorer(v, cls=GpuCandidateScorer, **kw):
@@ -62,6 +67,24 @@ def test_scorer_equals_jax_pallas_and_native(name):
     assert saw_missing
     assert jsc.tpu_compiles == 1       # every JAX score took the fast path
     assert sc.repairs == 0
+
+
+def test_jax_native_healed_after_a_lost_race(monkeypatch):
+    """A worker whose first JAX native load failed (a lost build race)
+    caches the failure; healed, the JAX native scorer runs and equals the
+    port's."""
+    from tokenmonster_tpu import native as jnative
+    v = VOCABS["capcode"]()
+    monkeypatch.setattr(jnative, "_lib", "unavailable")
+    with pytest.raises(RuntimeError, match="unavailable"):
+        jnative.NativeVocab(v)
+    assert heal_jax_native() is jnative.get_lib() is not None
+    strips = [text_for("capcode", v, 2000, seed=3)]
+    js, jt, jm = ref.CandidateScorer(v.charset, v.using_capcode,
+                                     v.normalizer.flag).score(v, strips)
+    ns, nt, nm = native_score(v, strips)
+    np.testing.assert_array_equal(js, ns)
+    assert jt == nt and jm == nm and jt > 0
 
 
 def test_multi_dispatch_strip(monkeypatch):
@@ -195,15 +218,16 @@ def pool_file(tmp_path_factory):
 def _train(backend, corpus, dictionary, results, caplog, **cfg):
     """Run one backend; returns (best .tok path, its round log lines)."""
     caplog.clear()
-    config = ref.TrainConfig(vocab_size=120, workers=2, fast=True, seed=7,
-                             keep_trying=5, backend=backend, **cfg)
-    with caplog.at_level(logging.INFO, logger="tokenmonster_tpu.trainvocab"):
+    kw = dict(vocab_size=120, workers=2, fast=True, seed=7, keep_trying=5,
+              backend=backend, **cfg)
+    with caplog.at_level(logging.INFO, logger=LOGGERS[0]), \
+            caplog.at_level(logging.INFO, logger=LOGGERS[1]):
         if backend == "native":
-            best = ref.train_vocab(corpus, dictionary, results, config)
+            best = ref.train_vocab(corpus, dictionary, results,
+                                   ref.TrainConfig(**kw))
         else:
-            best = port.train_vocab(corpus, dictionary, results, config,
-                                    device="cpu")
-    assert ref.CandidateScorer is port.CandidateScorer   # seam restored
+            best = port.train_vocab(corpus, dictionary, results,
+                                    port.TrainConfig(**kw), device="cpu")
     rounds = [r.getMessage() for r in caplog.records
               if r.getMessage().startswith("round ")]
     return best, rounds
@@ -247,10 +271,45 @@ def test_train_vocab_equals_native(pool_file, tmp_path, caplog):
     _same_files(tmp_path / "resume_native", tmp_path / "resume_cuda")
 
 
-def test_train_vocab_refuses_other_backends(pool_file, tmp_path):
+def test_train_vocab_defaults_to_the_device(pool_file, tmp_path,
+                                            monkeypatch):
+    """A default ``TrainConfig`` scores on the device: ``train_vocab``
+    builds a ``GpuCandidateScorer`` and every candidate goes through it;
+    the host scorer runs only when the caller asks for "native"."""
     corpus, tok = pool_file
-    with pytest.raises(ValueError, match="backend"):
-        port.train_vocab(corpus, tok, str(tmp_path),
-                         ref.TrainConfig(vocab_size=120, backend="native"),
-                         device="cpu")
-    assert ref.CandidateScorer is port.CandidateScorer
+    built, scored = [], []
+
+    class Recording(GpuCandidateScorer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            built.append(self)
+
+        def score(self, cand, datasets):
+            scored.append(cand)
+            return super().score(cand, datasets)
+
+    monkeypatch.setattr(port, "GpuCandidateScorer", Recording)
+    cfg = port.TrainConfig(vocab_size=120, workers=2, fast=True, seed=7,
+                           max_rounds=1)
+    assert cfg.backend == "cuda"
+    port.train_vocab(corpus, tok, str(tmp_path), cfg, device="cpu")
+    assert len(built) == 1 and built[0].device.type == "cpu"
+    assert len(scored) >= 1
+
+
+def test_train_vocab_refuses_other_backends(pool_file, tmp_path):
+    """The port's loop scores with "native" or "cuda"; the JAX package's
+    mesh-sharded "tpu" backend is not ported.  The loop is the port's own:
+    its scorers subclass the port's CandidateScorer, and no name of the
+    JAX trainer module is rebound."""
+    corpus, tok = pool_file
+    for backend in ("tpu", "pallas"):
+        with pytest.raises(ValueError, match="item 10"):
+            port.train_vocab(corpus, tok, str(tmp_path),
+                             port.TrainConfig(vocab_size=120,
+                                              backend=backend),
+                             device="cpu")
+    assert port.CandidateScorer is not ref.CandidateScorer
+    assert issubclass(GpuCandidateScorer, port.CandidateScorer)
+    assert not issubclass(GpuCandidateScorer, ref.CandidateScorer)
+    assert not hasattr(port, "_seam")

@@ -1,16 +1,20 @@
 """Shared inputs of the tokenmonster_tpu_torch tests: the vocabularies the
-port is held on, texts for them made from seeded numpy, and the hash-match
-tables both packages are given."""
+port is held on, texts for them made from seeded numpy, the hash-match
+tables both packages are given, and ``heal_jax_native``, which loads the
+JAX package's native library safely before a test reaches it."""
 
+import fcntl
 import os
+import time
 
 import numpy as np
+import pytest
 import torch
 
 from tokenmonster_tpu.core.vocab import Vocab, normalize_and_capcode
 from tokenmonster_tpu.ops.hashmatch import build_hashmatch
-from tokenmonster_tpu.train.trainvocab import CandidateScorer
 from tokenmonster_tpu_torch import native as tnative
+from tokenmonster_tpu_torch.train.trainvocab import CandidateScorer
 from tokenmonster_tpu_torch.ops.decide import decide
 from tokenmonster_tpu_torch.ops.match import match
 from tokenmonster_tpu_torch.ops.tables import space_prefix, upload_tables
@@ -77,6 +81,46 @@ def utf16_vocab():
                 normalize_string="none", using_capcode=1, level=5,
                 reset_token_ids=True)
     return v
+
+
+# Pairs of keys whose full 32-bit poly hashes are equal (found by search):
+# a placement keeps one of each pair in its hash table and the other as an
+# overflow key, compared byte by byte.
+HASH_TWINS = [(b"znDeo1", b"oq6MQK"), (b"YJdx4D", b"ygIqmL"),
+              (b"V9Lw1.xj", b"jCXld7o.")]
+LONG_KEYS = [b"The quick brown fox jumps over the lazy!", b"x" * 40,
+             b"0123456789" * 4, b"The quick brown fox jumps"]
+
+
+def edge_vocab(capcode: int):
+    """Keys at the edges of the match kernel: overflow keys (HASH_TWINS),
+    keys of the longest length (40 bytes, LONG_KEYS) and their prefixes,
+    and the printable single bytes.  Capcode 1 adds its delete token
+    (0x7f), so the space-stripped entries share the classes."""
+    singles = [bytes([b]) for b in range(32, 127 + (capcode == 1))]
+    toks = [k for pair in HASH_TWINS for k in pair] + LONG_KEYS
+    toks += [b" " + k for k in toks] + [b"The", b" quick", b"xx", b"xxxx"]
+    v = Vocab()
+    v._generate(tokens=toks + singles + [b"\n"], charset=1,
+                normalize_string="none", using_capcode=capcode, level=5,
+                reset_token_ids=True)
+    return v
+
+
+def edge_text(size: int, seed: int) -> bytes:
+    """``size`` bytes of the edge vocabulary's keys and of their near
+    misses (one byte changed), seeded, at every offset."""
+    rng = np.random.default_rng(seed)
+    keys = [k for pair in HASH_TWINS for k in pair] + LONG_KEYS
+    parts, total = [], 0
+    while total < size:
+        k = bytearray(keys[rng.integers(len(keys))])
+        if rng.random() < 0.3:
+            k[rng.integers(len(k))] = 0x61 + int(rng.integers(26))
+        sep = b" " * int(rng.integers(0, 3))
+        parts.append(bytes(k) + sep)
+        total += len(parts[-1])
+    return b"".join(parts)[:size]
 
 
 def unk_vocab():
@@ -154,20 +198,62 @@ def u32(t):
 
 
 def native_ids(v, data):
-    """(ids u32, missing) of the native tokenizer, reached through the
-    port's race-safe loader."""
-    ids, missing = tnative.native_vocab(v).tokenize(data)
+    """(ids u32, missing) of the port's native tokenizer."""
+    ids, missing = tnative.NativeVocab(v).tokenize(data)
     return np.asarray(ids, np.uint32), missing
 
 
 def native_score(v, datasets):
-    """(scores int64 [n_ids], tokens in text, missing set) of the native
-    trainer scorer (``tm_tokenize_score``): the reference
-    ``CandidateScorer.score``, its library loaded by the port's race-safe
-    loader."""
+    """(scores int64 [n_ids], tokens in text, missing set) of the port's
+    native trainer scorer (``tm_tokenize_score``): its
+    ``CandidateScorer(backend="native").score``, which raises when the
+    library cannot be built."""
     tnative.load_native()
     return CandidateScorer(v.charset, v.using_capcode,
                            v.normalizer.flag).score(v, datasets)
+
+
+JAX_NATIVE_LOCK = os.path.join(ROOT, "build", "tokenmonster_tpu_native.lock")
+JAX_NATIVE_WAIT_S = 300   # longest wait for another process's build
+
+
+def heal_jax_native():
+    """The JAX package's native library, loaded however this process's
+    first ``tokenmonster_tpu.native.get_lib`` went.  That loader compiles
+    every process to one shared temporary file and caches a failure for
+    the process's lifetime, so a test worker that lost a build race to
+    another would see "native library unavailable" in every later call
+    (the JAX scorer's ``NativeVocab``, the JAX trainer loop).  Here the
+    load runs under an ``fcntl`` lock; a failed (or cached failed) load is
+    retried once, after any other builder's temporary file is gone.
+    Raises RuntimeError when the library still cannot be loaded."""
+    from tokenmonster_tpu import native as jnative
+    build_dir = os.path.join(os.path.dirname(jnative.__file__), "_build")
+    os.makedirs(os.path.dirname(JAX_NATIVE_LOCK), exist_ok=True)
+    with open(JAX_NATIVE_LOCK, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        lib = jnative.get_lib()
+        if lib is None:
+            tmp = os.path.join(build_dir, "tm_native.so.tmp")
+            deadline = time.monotonic() + JAX_NATIVE_WAIT_S
+            while os.path.exists(tmp) and time.monotonic() < deadline:
+                time.sleep(0.2)
+            with jnative._lock:
+                jnative._lib = None
+            lib = jnative.get_lib()
+    if lib is None:
+        raise RuntimeError(f"the JAX package's native library is "
+                           f"unavailable: {build_dir} holds no loadable "
+                           "tm_native.so and g++ could not build it")
+    return lib
+
+
+@pytest.fixture(autouse=True)
+def jax_native():
+    """Autouse in every test file that imports it: those files reach the
+    JAX package's native library (its scorer, loop, api or getalltokens),
+    so each test first loads it with ``heal_jax_native``."""
+    heal_jax_native()
 
 
 def with_unk(scorer_cls):

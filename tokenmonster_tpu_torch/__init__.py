@@ -2,10 +2,13 @@
 with hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
 
 A port of ``tokenmonster_tpu``'s device tokenization (match -> decide ->
-follow -> stitch/compact), which stays the reference it is tested against.
-The host layers (vocabulary formats, normalisation, capcode, the native
-host tokenizer, the hash-table construction) are imported from it; this
-package never imports jax.
+follow -> stitch/compact) and of its trainer's candidate scorer and
+distillation loop; the JAX package stays the reference it is tested
+against.  The framework-free layers (``utils/``, ``core/``, ``native/``,
+``ops/hashmatch.py``, ``train/getalltokens.py`` and its filters, the
+user API and the trainer loop) are this package's own copies, laid out as
+in the JAX package: this package imports neither jax nor anything of
+``tokenmonster_tpu``.
 
 Quick start::
 

@@ -1,40 +1,154 @@
-"""User API: ``tokenmonster_tpu.api`` with the device route on PyTorch.
+"""Drop-in user API mirroring the reference Python binding, with the device
+route on PyTorch.
 
-``Vocab`` is the JAX package's user-facing vocabulary (its host layers
-import no jax); its device hook builds a ``GpuTokenizer`` on the
-vocabulary's ``device``.  ``route`` picks the path of each input.  "auto"
-(the default) keeps the JAX package's routing: inputs of at least
-``TPU_THRESHOLD`` normalized bytes are device candidates, the first call of
-each dispatch geometry is a warm-up, and among candidates the path with the
-better measured rate wins, re-probed every 64 calls.  "device" sends every
-input to the device path.  ``last_route`` and ``route_counts`` record the
-path each call took.
+Copy of ``tokenmonster_tpu/api.py``.  Everything runs in-process: the
+native C++ host tokenizer for small calls, and the CUDA kernels
+(``ops/scan.py::GpuTokenizer``) for bulk throughput.  ``Vocab`` takes the
+``device`` its device route runs on ("cuda": the kernels; "cpu": their
+plain PyTorch versions) and a ``route``: "auto" (the default) keeps the
+JAX package's routing, where inputs of at least ``TPU_THRESHOLD``
+normalized bytes are device candidates, the first call of each dispatch
+geometry is a warm-up, and among candidates the path with the better
+measured rate wins, re-probed every 64 calls; "device" sends every input to
+the device path.  ``last_route`` and ``route_counts`` record the path each
+call took.  Not copied: the multiprocess-safe remote client
+(``load_multiprocess_safe``, ROADMAP.md §1 item 12) and the download of
+prebuilt vocabularies (a local file is required).
+
+Method names, argument conventions and return types follow the reference:
+``tokenize`` accepts str/bytes or a list thereof and returns numpy uint16/
+uint32 arrays; ``decode`` accepts ints/lists/numpy and returns ``str``.
 """
 
 from __future__ import annotations
 
+import os
+import threading
 import time
 
 import numpy as np
 
-from tokenmonster_tpu import api as _api
-
-from .native import native_vocab
+from .core.tokenmeta import DOES_NOT_EXIST
+from .core.vocab import Vocab as _CoreVocab
+from .native import NativeVocab
 from .ops.scan import GpuTokenizer, check_device
 
 ROUTES = ("auto", "device")
 
+_local_directory = None
 
-class Vocab(_api.Vocab):
-    """A vocabulary whose device route runs on ``device``: the CUDA
-    kernels on ``"cuda"``, their plain PyTorch versions on ``"cpu"``."""
+# One in-process device lock: the batch path tokenizes items thread-parallel
+# and two items >= TPU_THRESHOLD would otherwise drive the device pipeline
+# concurrently; interleaved dispatch chains give no throughput win on one
+# card.
+_TPU_LOCK = threading.Lock()
+
+# Prebuilt vocabulary registry (reference python/tokenmonster.py:1178-1202,
+# 1300): the published names resolve against the local vocab directory.
+_PREBUILT_DATASETS = ("english", "code", "fiction", "englishcode")
+_PREBUILT_SIZES = ("1024", "2048", "4096", "8000", "12000", "16000",
+                   "24000", "32000", "40000", "50256", "65536", "100256")
+_PREBUILT_MODES = ("unfiltered", "clean", "balanced", "consistent", "strict")
+
+
+def is_prebuilt(name: str) -> bool:
+    """True when ``name`` is a published vocabulary name
+    (reference python/tokenmonster.py:1178-1202)."""
+    if name in ("gpt2", "llama"):
+        return True
+    parts = str(name).split("-")
+    if len(parts) < 4 or len(parts) > 5:
+        return False
+    if parts[0] not in _PREBUILT_DATASETS:
+        return False
+    if parts[1] not in _PREBUILT_SIZES:
+        return False
+    if parts[2] not in _PREBUILT_MODES:
+        return False
+    if len(parts) == 4:
+        return bool(parts[3]) and parts[3][0] == "v"
+    return parts[3] == "nocapcode" and bool(parts[4]) and parts[4][0] == "v"
+
+
+def _vocab_dir() -> str:
+    d = (_local_directory or os.environ.get("TM_VOCAB_DIR")
+         or os.path.join(os.path.expanduser("~"), "_tokenmonster"))
+    return d
+
+
+def set_local_directory(path=None):
+    global _local_directory
+    if path:
+        os.makedirs(path, exist_ok=True)
+    _local_directory = path
+
+
+def disconnect():
+    """Compatibility no-op (there is no server subprocess)."""
+
+
+def load(path, device="cuda", route="auto") -> "Vocab":
+    """Load a vocabulary (.vocab or .yaml) for tokenization on ``device``;
+    ``route`` is "auto" or "device" (see the module docstring)."""
+    return Vocab(path, device=device, route=route)
+
+
+def load_multiprocess_safe(path):
+    """The JAX package's shared-server client is not ported."""
+    raise NotImplementedError("load_multiprocess_safe: the remote client is "
+                              "not ported yet (ROADMAP.md §1 item 12)")
+
+
+def new(yml, device="cuda", route="auto") -> "Vocab":
+    """Create a new vocabulary from a YAML string (reference :58-105)."""
+    if isinstance(yml, str):
+        yml = yml.encode("utf-8")
+    v = Vocab.__new__(Vocab)
+    v._init_device(device, route)
+    v._init_core(_CoreVocab.from_yaml(yml))
+    return v
+
+
+def _is_iterable(obj):
+    return isinstance(obj, (list, tuple, np.ndarray))
+
+
+class Vocab:
+    """Main user-facing vocabulary class (reference python/tokenmonster.py:107)
+    whose device route runs on ``device``: the CUDA kernels on ``"cuda"``,
+    their plain PyTorch versions on ``"cpu"``."""
+
+    class DecoderInstance:
+        def __init__(self, parent: "Vocab"):
+            self._parent = parent
+            self._decoder = parent._core.new_decoder()
+
+        def decode(self, tokens):
+            if _is_iterable(tokens) and len(tokens) > 0 and _is_iterable(tokens[0]):
+                return [self.decode(t) for t in tokens]
+            if isinstance(tokens, (int, np.integer)):
+                tokens = [int(tokens)]
+            data = self._decoder.decode(np.asarray(tokens, dtype=np.uint32))
+            return data.decode("utf-8", errors="replace")
+
+        def flush(self) -> bytes:
+            return self._decoder.flush()
 
     def __init__(self, path, device="cuda", route="auto"):
+        self._init_device(device, route)
+        path = self._resolve(path)
+        if str(path).endswith((".yaml", ".yml")):
+            with open(path, "rb") as f:
+                core = _CoreVocab.from_yaml(f.read())
+        else:
+            core = _CoreVocab.load(path)
+        self._init_core(core)
+
+    def _init_device(self, device, route):
         self.device = check_device(device)
         self.route = route
         self.last_route = None
         self.route_counts = {"device": 0, "native": 0}
-        super().__init__(path)
 
     @property
     def route(self) -> str:
@@ -46,15 +160,160 @@ class Vocab(_api.Vocab):
             raise ValueError(f"route {value!r} is not one of {ROUTES}")
         self._route = value
 
+    def _init_core(self, core: _CoreVocab):
+        self._core = core
+        self.fname = None
+        self._refresh()
+
+    def _refresh(self):
+        self._native = None  # rebuilt lazily after any modification
+        self._tpu = None
+        self._route_rates = {"native": None, "tpu": None}
+        self._route_calls = 0
+        self._route_lock = threading.Lock()
+        # warm-up tracking is per chain geometry: each new (n_lanes, k)
+        # dispatch plan compiles its own fused chain, and that compile must
+        # never land in the measured routing rate
+        self._tpu_warm_geoms = set()
+        core = self._core
+        self.vocab_size = core.vocab_size
+        self.charset_code = core.charset
+        self.capcode_level = core.using_capcode
+        self.normalization_code = core.normalizer.flag
+        self.encoding_length = 2 if len(core.reverse) <= 65536 else 4
+        self.unk = core.unk_token if core.unk_token != DOES_NOT_EXIST else None
+
+    @staticmethod
+    def _resolve(path):
+        if os.path.exists(path):
+            return path
+        name = str(path)
+        vdir = _vocab_dir()
+        for candidate in (os.path.join(vdir, name),
+                          os.path.join(vdir, name + ".vocab")):
+            if os.path.exists(candidate):
+                return candidate
+        if is_prebuilt(name):
+            fname = name if name.endswith(".vocab") else name + ".vocab"
+            raise FileNotFoundError(
+                f"{name}: prebuilt vocabulary not cached at "
+                f"{os.path.join(vdir, fname)}; place the .vocab file there "
+                "or set TM_VOCAB_DIR / set_local_directory()")
+        raise FileNotFoundError(
+            f"{path}: not a local file or known prebuilt vocabulary name; "
+            "provide a local .vocab or .yaml file")
+
+    # ----- introspection -----
+
+    def __len__(self):
+        return self._core.vocab_size
+
+    def capcode(self) -> int:
+        return self._core.using_capcode
+
+    def charset(self) -> str:
+        return {0: "None", 1: "UTF-8", 2: "UTF-16"}[self._core.charset]
+
+    def mode(self) -> str:
+        level = self._core.level
+        return {0: "unfiltered", 1: "clean", 2: "balanced", 3: "consistent",
+                4: "strict", 5: "custom"}.get(level, "unknown")
+
+    def normalization(self) -> str:
+        return self._core.normalization()
+
+    def unk_token_id(self):
+        return self.unk
+
+    def get_dictionary(self):
+        """Dict keyed by token id with keys id/token/token_decoded/type/score
+        (reference python/tokenmonster.py:555-608; type is one of
+        "regular", "single", "special", "unk")."""
+        types = ["regular", "single", "special", "unk"]
+        out = {}
+        for v in self._core.tokens_detailed():
+            out[v["id"]] = {
+                "id": v["id"],
+                "token": v["token"].decode("utf-8", errors="replace"),
+                "token_decoded": v["token_decoded"].decode("utf-8",
+                                                           errors="replace"),
+                "type": types[v["type"]],
+                "score": v["score"],
+            }
+        return out
+
+    def id_to_token(self, token_id: int):
+        """Token string in capcode-encoded form (reference returns str)."""
+        t = self._core.id_to_token(int(token_id))
+        return None if t is None else t.decode("utf-8", errors="replace")
+
+    def id_to_token_decoded(self, token_id: int):
+        t = self._core.id_to_token(int(token_id))
+        if t is None:
+            return None
+        return self._core.denormalize(t).decode("utf-8", errors="replace")
+
+    def token_to_id(self, token):
+        if isinstance(token, str):
+            token = token.encode("utf-8")
+        token = self._core.normalize(token)
+        tid, found = self._core.token_to_id(token)
+        return tid if found else None
+
+    # ----- tokenize / decode -----
+
+    def _ids_dtype(self):
+        return np.uint16 if self.encoding_length == 2 else np.uint32
+
+    def _native_vocab(self):
+        """The native tokenizer of this vocabulary; raises when the library
+        cannot be built."""
+        if not self._native:
+            self._native = NativeVocab(self._core)
+        return self._native
+
+    # inputs at least this large are TPU candidates (the device pipeline
+    # amortises dispatch latency; small inputs stay on the native host
+    # tokenizer).  Among candidates, routing is decided by MEASURED rates:
+    # each path's end-to-end bytes/sec is recorded from real calls, and the
+    # faster path wins once both are known (one probe dispatch each) — so a
+    # rig where host transfers dominate (e.g. a tunneled TPU) provably never
+    # keeps routing through the slower path (VERDICT r3 weak #2).
+    # Override the size gate with TM_TPU_THRESHOLD; set huge to disable.
+    TPU_THRESHOLD = int(os.environ.get("TM_TPU_THRESHOLD", 1 << 21))
+
     def _tpu_tokenizer(self):
         """Lazily-built device tokenizer (rebuilt after any modification)."""
         if self._tpu is None:
             self._tpu = GpuTokenizer(self._core, device=self.device)
         return self._tpu
 
+    # re-probe the losing path after this many routed calls so a transient
+    # slowdown (or the one-time compile) cannot lock a route out forever
+    _REPROBE_EVERY = 64
+
+    def _pick_route(self) -> str:
+        """Measured-rate routing for TPU-candidate inputs: probe each path
+        (a real call doubles as the probe), keep the faster, and
+        periodically re-probe the loser.  State is mutated under
+        _route_lock so concurrent tokenize() callers cannot race the
+        probe bookkeeping."""
+        with self._route_lock:
+            r = self._route_rates
+            if r["tpu"] is None:
+                return "tpu"
+            if r["native"] is None:
+                return "native"
+            self._route_calls += 1
+            if self._route_calls % self._REPROBE_EVERY == 0:
+                loser = "tpu" if r["tpu"] < r["native"] else "native"
+                r[loser] = None
+                return loser
+            return "tpu" if r["tpu"] >= r["native"] else "native"
+
     def _tokenize_one(self, item) -> np.ndarray:
-        """``tokenmonster_tpu.api.Vocab._tokenize_one`` with the route
-        pinned by ``route`` and recorded."""
+        """One input through the route ``route`` picks, recorded in
+        ``last_route`` and ``route_counts``."""
         if isinstance(item, str):
             item = item.encode("utf-8")
         normalized = self._core.normalize(item)
@@ -75,7 +334,7 @@ class Vocab(_api.Vocab):
         """Ids from the device path; ``timed`` records its measured rate,
         except on the first call of a dispatch geometry (the warm-up)."""
         tk = self._tpu_tokenizer()
-        with _api._TPU_LOCK:
+        with _TPU_LOCK:
             if timed:
                 lanes, plan = tk._plan(len(normalized))
                 geom = (lanes, len(plan))
@@ -90,13 +349,6 @@ class Vocab(_api.Vocab):
                     len(normalized) / max(time.monotonic() - t0, 1e-9))
         return ids
 
-    def _native_vocab(self):
-        """The native tokenizer of this vocabulary, reached through the
-        race-safe loader; raises when the library cannot be built."""
-        if not self._native:
-            self._native = native_vocab(self._core)
-        return self._native
-
     def _native_ids(self, normalized: bytes, timed: bool) -> np.ndarray:
         """Ids from the native host tokenizer; ``timed`` records its rate."""
         nv = self._native_vocab()
@@ -108,8 +360,130 @@ class Vocab(_api.Vocab):
                     len(normalized) / max(time.monotonic() - t0, 1e-9))
         return ids
 
+    def tokenize(self, text):
+        if isinstance(text, (str, bytes)):
+            if len(text) == 0:
+                return None
+            return self._tokenize_one(text)
+        if _is_iterable(text):
+            # batch items run thread-parallel like the reference server's
+            # per-batch goroutines (tokenmonsterserver.go:364-377); the
+            # native tokenizer releases the GIL inside ctypes calls.
+            if len(text) > 1:
+                from concurrent.futures import ThreadPoolExecutor
+                with ThreadPoolExecutor(max_workers=min(8, len(text))) as ex:
+                    return list(ex.map(self._tokenize_one, text))
+            return [self._tokenize_one(t) for t in text]
+        raise ValueError("Input to tokenize must be a string or a list of strings.")
 
-def load(path, device="cuda", route="auto") -> Vocab:
-    """Load a vocabulary (.vocab or .yaml) for tokenization on ``device``;
-    ``route`` is "auto" or "device" (see ``Vocab``)."""
-    return Vocab(path, device=device, route=route)
+    def tokenize_count(self, text):
+        if isinstance(text, (str, bytes)):
+            n, _m = self._core.count(text.encode("utf-8") if isinstance(text, str) else text)
+            return n
+        if _is_iterable(text):
+            return [self.tokenize_count(t) for t in text]
+        raise ValueError("Input to tokenize_count must be a string or a list of strings.")
+
+    def decode(self, tokens):
+        if _is_iterable(tokens):
+            if len(tokens) == 0:
+                return None
+            if _is_iterable(tokens[0]):
+                return [self.decode(t) for t in tokens]
+        elif isinstance(tokens, (int, np.integer)):
+            tokens = [int(tokens)]
+        else:
+            raise ValueError("Input to decode must be an int, list of ints, "
+                             "list of lists, or numpy array.")
+        data = self._core.decode(np.asarray(tokens, dtype=np.uint32))
+        return data.decode("utf-8", errors="replace")
+
+    def decoder(self) -> "Vocab.DecoderInstance":
+        return Vocab.DecoderInstance(self)
+
+    def serialize_tokens(self, integer_list) -> bytes:
+        from .core.tokenizer import serialize_tokens
+        return serialize_tokens(np.asarray(integer_list, np.uint32),
+                                self.encoding_length)
+
+    def deserialize_tokens(self, binary_string: bytes) -> np.ndarray:
+        from .core.tokenizer import deserialize_tokens
+        return deserialize_tokens(binary_string, self.encoding_length).astype(
+            self._ids_dtype())
+
+    # ----- modification -----
+
+    def modify(self, add_special_tokens=None, add_regular_tokens=None,
+               delete_tokens=None, resize=None, change_unk=None,
+               reset_token_ids=False):
+        def to_bytes_list(x):
+            if x is None:
+                return []
+            if isinstance(x, (str, bytes)):
+                x = [x]
+            return [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in x]
+        if change_unk is True:
+            self._core.enable_unk_token()
+        elif change_unk is False:
+            self._core.disable_unk_token()
+        self._core.modify(add_tokens=to_bytes_list(add_regular_tokens),
+                          special_tokens=to_bytes_list(add_special_tokens),
+                          delete_tokens=to_bytes_list(delete_tokens),
+                          size=resize or 0, reset_token_ids=reset_token_ids)
+        self._refresh()
+        return self.vocab_size
+
+    def modify_from_yaml(self, yml, resize=0, reset_token_ids=False):
+        if isinstance(yml, str):
+            yml = yml.encode("utf-8")
+        self._core.modify_from_yaml(yml, resize, reset_token_ids)
+        self._refresh()
+        return self.vocab_size
+
+    def add_token(self, token):
+        return self.modify(add_regular_tokens=token)
+
+    def delete_token(self, token):
+        return self.modify(delete_tokens=token)
+
+    def delete_token_by_id(self, token_id):
+        self._core.delete_token_by_id(int(token_id))
+        self._refresh()
+        return self.vocab_size
+
+    def add_special_token(self, token):
+        return self.modify(add_special_tokens=token)
+
+    def resize(self, size, reset_token_ids=False):
+        self._core.modify(size=size, reset_token_ids=reset_token_ids)
+        self._refresh()
+        return self.vocab_size
+
+    def reset_token_ids(self):
+        self._core.reset_token_ids()
+        self._refresh()
+
+    def enable_unk_token(self):
+        self._core.enable_unk_token()
+        self._refresh()
+        return self.vocab_size
+
+    def disable_unk_token(self):
+        self._core.disable_unk_token()
+        self._refresh()
+        return self.vocab_size
+
+    # ----- persistence -----
+
+    def save(self, fname):
+        self._core.save(fname)
+        self.fname = fname
+
+    def export_yaml(self, order_by_score=False) -> bytes:
+        return self._core.export_yaml(order_by_score)
+
+    @property
+    def core(self) -> _CoreVocab:
+        """The underlying array-backed vocabulary (the kernels' tables are
+        built from it)."""
+        return self._core

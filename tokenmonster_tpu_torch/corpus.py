@@ -7,8 +7,7 @@ from __future__ import annotations
 
 import os
 
-from tokenmonster_tpu.core.vocab import Vocab
-
+from .core.vocab import Vocab
 from .ops.scan import MARGIN, GpuTokenizer
 
 

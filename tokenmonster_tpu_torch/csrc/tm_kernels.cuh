@@ -26,11 +26,29 @@
 #define TM_HD inline
 #endif
 
+#if defined(__CUDACC__)
+#define TM_UNROLL _Pragma("unroll")
+#else
+#define TM_UNROLL
+#endif
+
+#if defined(__CUDA_ARCH__)
+#define TM_LDG(p) __ldg(p)
+#define TM_CLZ64(x) __clzll((long long)(x))
+#else
+#define TM_LDG(p) (*(p))
+#define TM_CLZ64(x) __builtin_clzll(x)
+#endif
+
 namespace tmk {
 
 constexpr uint32_t SEED = 0x811C9DC5u;  // ops/hashmatch.py SEED, C1, C2
 constexpr uint32_t C1 = 0x9E3779B1u;
 constexpr uint32_t C2 = 0x85EBCA6Bu;
+constexpr uint32_t FILTER_MULT = 0x27D4EB2Fu;      // ops/tables.py key_filter
+constexpr uint32_t FILTER_MULT2 = 0x2C1B3C6Du;
+constexpr uint32_t FILTER_LEN_MULT = 0x9E3779B9u;
+constexpr int32_t MAX_KEY_LEN = 63;                // candidate lengths: 64-bit mask
 
 // Per-class descriptor row (int32, DESC_W wide); built by ops/tables.py.
 enum {
@@ -70,6 +88,13 @@ struct MatchArgs {
   int32_t has_space;
   int32_t lil_off;
   int32_t pad_;
+  // fields from here on are read by the shared-memory design only; the
+  // struct's head is the one-thread-per-position design's, unchanged
+  const uint32_t* filt;         // key filter, 2^(filt_log2 - 5) words
+  int32_t filt_log2;
+  int32_t n_cls;                // rows of desc
+  int32_t disp_words;           // length of disp
+  int32_t pad2_;
 };
 
 struct DecideArgs {
@@ -133,84 +158,312 @@ TM_HD int32_t clip127(int32_t d) { return d < 0 ? 0 : (d > 127 ? 127 : d); }
 // Longest dictionary match at p (ops/pallas_match.py kernel body): the
 // same poly hash, CHD bucket/slot math and exact key compare, one class
 // probe per key length, longer hits overriding shorter ones.
-TM_HD void match_at(const MatchArgs& a, int64_t p) {
-  const uint32_t t0 = byte_at(a.text, a.N, p);
-  const bool fits1 = p + 1 <= a.n;
-  int32_t best = 0, bestb = 0;
-  const int32_t s1 = a.single[t0];
-  if (s1 > 0 && fits1) best = ((s1 - 1) << 6) | 1;
-  if (a.has_space) {
-    // the bare prefix token matches everywhere, p >= n included
-    const int32_t se = a.scalars[0];
-    if (se > 0) bestb = ((se - 1) << 6) | a.lil_off;
-    const int32_t sp = a.space_single[t0];
-    if (sp > 0 && fits1) bestb = ((sp - 1) << 6) | (1 + a.lil_off);
+//
+// The kernel (tm_kernels.cu) stages a tile of text in shared memory and
+// holds the small tables there; this per-position code reads them through
+// pointers, so the host harness runs it on ordinary arrays.  The text
+// window ``win`` holds the bytes [p0, p0 + len) as little-endian u32 words,
+// zero past N; position p sits at byte offset t = p - p0.
+
+// The tables a position reads often: in shared memory in the kernel.
+struct MatchTables {
+  const int32_t* desc;          // (n_cls, desc_stride), stride >= DESC_W
+  const int32_t* len_cls;       // (max_len+1,)
+  const int32_t* single;        // (256,)
+  const int32_t* space_single;  // (256,)
+  const int32_t* disp;          // disp_words
+  const uint32_t* filt;         // 2^(filt_log2-5) words
+  int32_t desc_stride;          // words between rows: the kernel pads them
+                                // to an odd count, so that threads reading
+                                // one field of different classes hit
+                                // different shared-memory banks
+};
+
+constexpr int32_t PLANE_BATCH = 4;  // key planes loaded together on a hit
+constexpr int32_t KEEP = 2;         // longest candidates kept with their hash
+
+TM_HD uint32_t win_byte(const uint32_t* win, int32_t o) {
+  return (win[o >> 2] >> ((o & 3) * 8)) & 0xFFu;
+}
+
+// Bytes o, o+1, ... of the window from bit 0 up: two word loads and a
+// funnel shift, at least 40 valid bits.
+TM_HD uint64_t win_load64(const uint32_t* win, int32_t o) {
+  const int32_t q = o >> 2;
+  const uint64_t v = ((uint64_t)win[q + 1] << 32) | (uint64_t)win[q];
+  return v >> ((o & 3) * 8);
+}
+
+// 32 bits of the text stream at byte offset t, from its bit s (s > -32):
+// bit i of the result is text bit s + i, zero below the text's bit 0.  The
+// key bits of a slot's field plane f sit at payload bits ib + 8k, so plane
+// f lines up with the text stream from bit 32 f - ib.
+TM_HD uint32_t win_bits(const uint32_t* win, int32_t t, int32_t s) {
+  if (s < 0) return (uint32_t)win_load64(win, t) << (-s);
+  return (uint32_t)(win_load64(win, t + (s >> 3)) >> (s & 7));
+}
+
+// Whether both key-filter bits of a window of length l whose poly hash is
+// h are set (ops/tables.py filter_mix): if not, no key of length l is
+// there.
+TM_HD bool filter_passes(const uint32_t* filt, uint32_t h, int32_t l, int32_t log2) {
+  const uint32_t x = (h + (uint32_t)l * FILTER_LEN_MULT) * FILTER_MULT;
+  const uint32_t b1 = x >> (32 - log2);
+  if (!((filt[b1 >> 5] >> (b1 & 31u)) & 1u)) return false;
+  const uint32_t b2 = ((x ^ (x >> 15)) * FILTER_MULT2) >> (32 - log2);
+  return (filt[b2 >> 5] >> (b2 & 31u)) & 1u;
+}
+
+// Whether field plane f of a slot (word w) holds the window's key bits:
+// payload bits [ib, kend) are the key bytes, plane f bits [32f, 32f+32).
+TM_HD bool key_plane_equal(uint32_t w, const uint32_t* win, int32_t t,
+                           int32_t f, int32_t ib, int32_t kend) {
+  const int32_t lo = ib - 32 * f, hi = kend - 32 * f;
+  uint32_t m = hi >= 32 ? 0xFFFFFFFFu : ((1u << hi) - 1u);
+  if (lo > 0) m &= ~((1u << lo) - 1u);
+  return ((w ^ win_bits(win, t, 32 * f - ib)) & m) == 0;
+}
+
+// One class probe of the window's first l bytes (poly hash h): the main
+// and space-stripped dictionary index + 1 of the key it holds, each 0 when
+// there is none (or, on masked tables, when it is dead).  The CHD slot,
+// then the key 32 bits at a time: its first plane alone (most probes that
+// pass the filter and still miss end there), then the rest of a hit's
+// planes PLANE_BATCH at a time, their loads in flight together; then the
+// class's overflow keys, byte by byte.
+TM_HD void match_probe(const MatchArgs& a, const MatchTables& tb,
+                       const uint32_t* win, int32_t t, int32_t l, uint32_t h,
+                       int32_t& im, int32_t& is) {
+  const int32_t* d = tb.desc + (int64_t)tb.len_cls[l] * tb.desc_stride;
+  const int32_t S = d[D_S];
+  const int32_t bbits = d[D_BBITS];
+  // bucket: top b_bits of h*C1; a shift by 32 is undefined, so 0 bits is
+  // its own case
+  const uint32_t bucket = bbits ? (h * C1) >> (32 - bbits) : 0u;
+  // slot hash g: the truncated NAF sum of hashmatch.scale_to, not a high
+  // multiply (which differs by up to the number of terms)
+  const uint32_t y = (h ^ (uint32_t)d[D_SALT]) * C2;
+  int32_t g = 0;
+  for (int32_t i = 0; i < d[D_NSCALE]; ++i) {
+    const int32_t e = d[D_SCALE + i];
+    const int32_t term = (int32_t)(y >> (32 - (e >> 1)));
+    g += (e & 1) ? -term : term;
   }
-  const uint32_t imask = (1u << a.idx1_bits) - 1u;
+  g = g < 0 ? 0 : (g > S - 1 ? S - 1 : g);
+  const uint32_t dw = (uint32_t)tb.disp[d[D_DOFF] + (bucket >> 1)];
+  const uint32_t dd = ((bucket & 1u) ? (dw >> 16) : dw) & 0xFFFFu;
+  int32_t slot = g + (int32_t)dd;
+  if (slot >= S) slot -= S;
+  const int32_t* F = a.fields + d[D_FOFF] + slot;
+  const int64_t stride = d[D_STRIDE];
   const int32_t n_idx = a.has_space ? 2 : 1;
   const int32_t ib = a.idx1_bits * n_idx;
+  const int32_t kend = ib + 8 * l;
+  const int32_t nf = d[D_NF];
+  int32_t f = ib >> 5;
+  const uint32_t w_first = (uint32_t)TM_LDG(F + f * stride);
+  bool eq = key_plane_equal(w_first, win, t, f, ib, kend);
+  uint32_t w0 = w_first;
+  if (eq && f > 0) w0 = (uint32_t)TM_LDG(F);
+  for (++f; eq && f < nf; f += PLANE_BATCH) {
+    uint32_t w[PLANE_BATCH];
+    TM_UNROLL
+    for (int32_t j = 0; j < PLANE_BATCH; ++j)
+      w[j] = f + j < nf ? (uint32_t)TM_LDG(F + (f + j) * stride) : 0u;
+    TM_UNROLL
+    for (int32_t j = 0; j < PLANE_BATCH; ++j)
+      if (f + j < nf) eq = eq && key_plane_equal(w[j], win, t, f + j, ib, kend);
+  }
+  im = is = 0;
+  if (eq) {
+    const uint32_t imask = (1u << a.idx1_bits) - 1u;
+    im = (int32_t)(w0 & imask);
+    if (a.has_space) {
+      uint32_t sw = w0 >> a.idx1_bits;
+      if (2 * a.idx1_bits > 32) sw |= (uint32_t)TM_LDG(F + stride) << (32 - a.idx1_bits);
+      is = (int32_t)(sw & imask);
+    }
+    return;  // the window is this key, so it is no overflow key
+  }
+  // keys whose full hash collides with a placed key: direct compare
+  for (int32_t j = 0; j < d[D_NOVF]; ++j) {
+    const uint8_t* key = a.ovf_keys + d[D_OVF_BYTES] + (int64_t)j * l;
+    bool ok = true;
+    for (int32_t k = 0; k < l && ok; ++k) ok = key[k] == win_byte(win, t + k);
+    if (!ok) continue;
+    const int32_t* sc = a.scalars + d[D_OVF_SCALARS] + j * n_idx;
+    im = sc[0];
+    if (a.has_space) is = sc[1];
+    return;
+  }
+}
+
+// Bit l set for each key length l that has a class: the lengths the key
+// filter is asked about.
+TM_HD uint64_t class_lengths(const MatchTables& tb, int32_t max_len) {
+  uint64_t mask = 0;
+  for (int32_t l = 1; l <= max_len; ++l)
+    if (tb.len_cls[l] >= 0) mask |= 1ull << l;
+  return mask;
+}
+
+TM_HD uint32_t hash_window(const uint32_t* win, int32_t t, int32_t l) {
   uint32_t h = SEED;
-  // a hit needs p + l <= n, so no longer length can hit past that point
-  for (int32_t l = 1; l <= a.max_len && p + l <= a.n; ++l) {
-    h = h * 257u + byte_at(a.text, a.N, p + l - 1);
+  for (int32_t k = 0; k < l; ++k) {
+    h = h * 257u + win_byte(win, t + k);
     h ^= h >> 11;
-    const int32_t c = a.len_cls[l];
-    if (c < 0) continue;
-    const int32_t* d = a.desc + (int64_t)c * DESC_W;
-    const int32_t S = d[D_S];
-    const int32_t bbits = d[D_BBITS];
-    // bucket: top b_bits of h*C1; a shift by 32 is undefined, so 0 bits
-    // is its own case
-    const uint32_t bucket = bbits ? (h * C1) >> (32 - bbits) : 0u;
-    // slot hash g: the truncated NAF sum of hashmatch.scale_to, not a
-    // high multiply (which differs by up to the number of terms)
-    const uint32_t y = (h ^ (uint32_t)d[D_SALT]) * C2;
-    int32_t g = 0;
-    for (int32_t i = 0; i < d[D_NSCALE]; ++i) {
-      const int32_t e = d[D_SCALE + i];
-      const int32_t term = (int32_t)(y >> (32 - (e >> 1)));
-      g += (e & 1) ? -term : term;
+  }
+  return h;
+}
+
+// The search for M (and Mb) at one position: the words found so far,
+// which are still wanted, and the lengths still to probe.
+struct MatchState {
+  int32_t best, bestb;
+  bool need_m, need_b;
+  uint64_t cand;       // lengths that passed the key filter, not yet probed
+  int32_t kl[KEEP];    // the longest of them, longest first, with their
+  uint32_t kh[KEEP];   // poly hashes (0 where fewer passed)
+};
+
+// Position p (window offset t): the single-byte and bare-prefix words,
+// then every length's hash against the key filter, from the window, 4
+// bytes per read and 4 lengths per batch of filter loads: lengths that
+// fail it hold no key.  ``lengths`` is class_lengths.
+TM_HD MatchState match_begin(const MatchArgs& a, const MatchTables& tb, uint64_t lengths,
+                             const uint32_t* win, int32_t t, int64_t p) {
+  MatchState st;
+  const uint32_t t0 = win_byte(win, t);
+  const bool fits1 = p + 1 <= a.n;
+  st.best = st.bestb = 0;
+  const int32_t s1 = tb.single[t0];
+  if (s1 > 0 && fits1) st.best = ((s1 - 1) << 6) | 1;
+  if (a.has_space) {
+    // the bare prefix token matches everywhere, p >= n included
+    const int32_t se = TM_LDG(a.scalars);
+    if (se > 0) st.bestb = ((se - 1) << 6) | a.lil_off;
+    const int32_t sp = tb.space_single[t0];
+    if (sp > 0 && fits1) st.bestb = ((sp - 1) << 6) | (1 + a.lil_off);
+  }
+  st.need_m = true;
+  st.need_b = a.has_space != 0;
+  // a hit needs p + l <= n, so no longer length can hit past that point
+  const int64_t room = (int64_t)a.n - p;
+  const int32_t lmax = room < a.max_len ? (int32_t)(room < 0 ? 0 : room) : a.max_len;
+  uint64_t cand = 0;
+  uint32_t h = SEED;
+  int32_t kl0 = 0, kl1 = 0;
+  uint32_t kh0 = 0, kh1 = 0;
+  for (int32_t l0 = 0; l0 < lmax; l0 += 4) {
+    // four lengths at a time: their hashes and filter bits first, then the
+    // eight filter words' loads together, then the tests
+    const uint32_t four = (uint32_t)win_load64(win, t + l0);
+    uint32_t hq[4], b1[4], b2[4];
+    TM_UNROLL
+    for (int32_t j = 0; j < 4; ++j) {
+      h = h * 257u + ((four >> (8 * j)) & 0xFFu);
+      h ^= h >> 11;
+      hq[j] = h;
+      const uint32_t x = (h + (uint32_t)(l0 + j + 1) * FILTER_LEN_MULT) * FILTER_MULT;
+      b1[j] = x >> (32 - a.filt_log2);
+      b2[j] = ((x ^ (x >> 15)) * FILTER_MULT2) >> (32 - a.filt_log2);
     }
-    g = g < 0 ? 0 : (g > S - 1 ? S - 1 : g);
-    const uint32_t dw = (uint32_t)a.disp[d[D_DOFF] + (bucket >> 1)];
-    const uint32_t dd = ((bucket & 1u) ? (dw >> 16) : dw) & 0xFFFFu;
-    int32_t slot = g + (int32_t)dd;
-    if (slot >= S) slot -= S;
-    const int32_t* F = a.fields + d[D_FOFF] + slot;
-    const int32_t stride = d[D_STRIDE];
-    bool eq = true;
-    for (int32_t k = 0; k < l && eq; ++k) {
-      const int32_t bit = ib + 8 * k;
-      const int32_t f = bit >> 5, off = bit & 31;
-      uint32_t w = (uint32_t)F[(int64_t)f * stride] >> off;
-      if (off > 24) w |= (uint32_t)F[(int64_t)(f + 1) * stride] << (32 - off);
-      eq = (w & 0xFFu) == byte_at(a.text, a.N, p + k);
+    uint32_t w1[4], w2[4];
+    TM_UNROLL
+    for (int32_t j = 0; j < 4; ++j) {
+      w1[j] = tb.filt[b1[j] >> 5];
+      w2[j] = tb.filt[b2[j] >> 5];
     }
-    if (eq) {
-      const uint32_t w0 = (uint32_t)F[0];
-      const int32_t im = (int32_t)(w0 & imask);
-      if (im > 0) best = ((im - 1) << 6) | l;
-      if (a.has_space) {
-        uint32_t sw = w0 >> a.idx1_bits;
-        if (2 * a.idx1_bits > 32) sw |= (uint32_t)F[stride] << (32 - a.idx1_bits);
-        const int32_t is = (int32_t)(sw & imask);
-        if (is > 0) bestb = ((is - 1) << 6) | (l + a.lil_off);
+    TM_UNROLL
+    for (int32_t j = 0; j < 4; ++j) {
+      const int32_t l = l0 + j + 1;
+      if (l <= lmax && ((lengths >> l) & 1u) && ((w1[j] >> (b1[j] & 31u)) & (w2[j] >> (b2[j] & 31u)) & 1u)) {
+        cand |= 1ull << l;
+        kl1 = kl0;
+        kh1 = kh0;
+        kl0 = l;
+        kh0 = hq[j];
       }
     }
-    // keys whose full hash collides with a placed key: direct compare
-    for (int32_t j = 0; j < d[D_NOVF]; ++j) {
-      const uint8_t* key = a.ovf_keys + d[D_OVF_BYTES] + (int64_t)j * l;
-      bool ok = true;
-      for (int32_t k = 0; k < l && ok; ++k)
-        ok = key[k] == byte_at(a.text, a.N, p + k);
-      if (!ok) continue;
-      const int32_t* sc = a.scalars + d[D_OVF_SCALARS] + j * n_idx;
-      if (sc[0] > 0) best = ((sc[0] - 1) << 6) | l;
-      if (a.has_space && sc[1] > 0) bestb = ((sc[1] - 1) << 6) | (l + a.lil_off);
-    }
   }
-  a.m[p] = (uint32_t)best;
-  if (a.has_space) a.mb[p] = (uint32_t)bestb;
+  st.cand = cand;
+  st.kl[0] = kl0;
+  st.kl[1] = kl1;
+  st.kh[0] = kh0;
+  st.kh[1] = kh1;
+  return st;
+}
+
+// The result of probing length l: M (and Mb) take the longest hit with an
+// index, so a probe in descending order settles each at its first hit.
+TM_HD void match_take(const MatchArgs& a, MatchState& st, int32_t l, int32_t im, int32_t is) {
+  if (st.need_m && im > 0) {
+    st.best = ((im - 1) << 6) | l;
+    st.need_m = false;
+  }
+  if (st.need_b && is > 0) {
+    st.bestb = ((is - 1) << 6) | (l + a.lil_off);
+    st.need_b = false;
+  }
+  st.cand &= ~(1ull << l);
+}
+
+TM_HD bool match_wants(const MatchState& st) { return st.cand && (st.need_m || st.need_b); }
+
+// Probe the longest length left, its hash kept or hashed again.
+TM_HD void match_next(const MatchArgs& a, const MatchTables& tb, const uint32_t* win,
+                      int32_t t, MatchState& st) {
+  const int32_t l = 63 - TM_CLZ64(st.cand);
+  uint32_t h;
+  if (l == st.kl[0]) {
+    h = st.kh[0];
+  } else if (l == st.kl[1]) {
+    h = st.kh[1];
+  } else {
+    h = hash_window(win, t, l);
+  }
+  int32_t im, is;
+  match_probe(a, tb, win, t, l, h, im, is);
+  match_take(a, st, l, im, is);
+}
+
+TM_HD void match_end(const MatchArgs& a, const MatchState& st, int64_t p) {
+  a.m[p] = (uint32_t)st.best;
+  if (a.has_space) a.mb[p] = (uint32_t)st.bestb;
+}
+
+// M (and Mb) at p, the window's byte offset t: the longest length l whose
+// window is a key with a main (and, for Mb, a space-stripped) index.  The
+// lengths that pass the key filter are probed longest first, and the
+// search ends once M (and Mb) are found, so most positions probe one or
+// two lengths.  (The kernel runs the same search with the probes after
+// the first shared among a warp's lanes; tm_kernels.cu.)
+TM_HD void match_window(const MatchArgs& a, const MatchTables& tb, uint64_t lengths,
+                        const uint32_t* win, int32_t t, int64_t p) {
+  MatchState st = match_begin(a, tb, lengths, win, t, p);
+  while (match_wants(st)) match_next(a, tb, win, t, st);
+  match_end(a, st, p);
+}
+
+// The window word j of a tile starting at p0: bytes p0 + 4j .. + 3, zero
+// past N.
+TM_HD uint32_t match_win_word(const MatchArgs& a, int64_t p0, int32_t j) {
+  const int64_t q = p0 + 4 * (int64_t)j;
+  uint32_t w = 0;
+  for (int32_t k = 0; k < 4; ++k) w |= byte_at(a.text, a.N, q + k) << (8 * k);
+  return w;
+}
+
+// Positions of the match kernel's warp tile: each lane of a warp takes
+// MATCH_PER_LANE of them.  The host harness (tm_host.cpp) and the tests
+// read it through tm_match_tile.
+constexpr int32_t MATCH_PER_LANE = 2;
+constexpr int32_t MATCH_TILE = 32 * MATCH_PER_LANE;
+
+// Words of a tile's window: tile positions, then max_len bytes of
+// lookahead, then two words of slack for the funnel-shift loads.
+TM_HD int32_t match_win_words(int32_t tile, int32_t max_len) {
+  return (tile + max_len + 3) / 4 + 3;
 }
 
 // --------------------------------------------------------------- decide
@@ -327,33 +580,88 @@ TM_HD void decide_at(const DecideArgs& a, int64_t p, int32_t fd) {
 // Chain-follow of one lane from (lane start, fd = 0) through chunk +
 // overlap bytes (ops/pallas_follow.py; ops/decision.py::follow_lanes with
 // packed=True).  Steps after the lane finishes write zero records.
-TM_HD void follow_lane(const FollowArgs& a, int32_t lane) {
-  const int64_t start = (int64_t)lane * a.chunk;
-  int64_t stop = (int64_t)a.n - start;
+//
+// The kernel copies a tile of each lane's window, ``w = ctl | tok << 10``
+// over TW window positions, into shared memory and walks the chain there;
+// a lane whose chain leaves its tile stops, and walks on once the tile is
+// refilled from where it stopped (window positions only rise).  Tile
+// layout: window position tb + k, fd row r at tile[k * rows + r], the rows
+// of a position side by side.  A position past the window's last reads
+// the last one's words, as the chain clamps its reads to W - 1.
+
+struct FollowLane {
+  int64_t start;
+  int32_t stop;       // the chain is done once pos_rel >= stop
+  int32_t t;          // next record row
+  int32_t pos_rel;
+  int32_t fd;
+  bool done;
+};
+
+TM_HD FollowLane follow_begin(const FollowArgs& a, int32_t lane) {
+  FollowLane s;
+  s.start = (int64_t)lane * a.chunk;
+  int64_t stop = (int64_t)a.n - s.start;
   const int64_t span = (int64_t)a.chunk + a.overlap;
-  stop = stop < -1 ? -1 : (stop > span ? span : stop);
-  bool done = stop <= 0;
-  int32_t pos_rel = 0, fd = 0;
-  for (int32_t t = 0; t < a.t_rec; ++t) {
-    uint32_t rec = 0, tk = 0;
-    if (!done) {
-      const int32_t pr = pos_rel > a.W - 1 ? a.W - 1 : pos_rel;
-      const int64_t q = start + pr;
-      const int64_t row = a.rows > 1 ? fd : 0;
-      const uint32_t w = q < a.N ? (a.ctl[row * a.N + q] | (a.tok[row * a.N + q] << 10)) : 0u;
-      const int32_t new_rel = pos_rel + (int32_t)(w & 63u);
-      const int32_t new_fd = (int32_t)((w >> 6) & 1u);
-      rec = ((uint32_t)(start + new_rel) << 4) | (uint32_t)new_fd |
-            (((w >> 7) & 1u) << 1) | (((w >> 8) & 1u) << 2) | (((w >> 9) & 1u) << 3);
-      tk = w >> 10;
-      done = new_rel >= stop;
-      pos_rel = new_rel;
-      fd = new_fd;
-    }
-    a.recs[(int64_t)t * a.L + lane] = rec;
-    a.toks[(int64_t)t * a.L + lane] = tk;
+  s.stop = (int32_t)(stop < -1 ? -1 : (stop > span ? span : stop));
+  s.done = s.stop <= 0;
+  s.t = 0;
+  s.pos_rel = 0;
+  s.fd = 0;
+  return s;
+}
+
+// The packed word of fd row ``row`` at window position ``k`` (clamped to
+// the window) of a lane starting at ``start``: zero past N.
+TM_HD uint32_t follow_word(const FollowArgs& a, int64_t start, int32_t row, int64_t k) {
+  const int64_t q = start + (k < a.W - 1 ? k : a.W - 1);
+  if (q >= a.N) return 0u;
+  const int64_t at = (int64_t)row * a.N + q;
+  return (uint32_t)TM_LDG(a.ctl + at) | ((uint32_t)TM_LDG(a.tok + at) << 10);
+}
+
+// Steps of one lane on a tile holding window positions [tb, tb + TW).
+// Returns true when the next step reads past the tile: refill it from
+// s.pos_rel and call again.  Returns false once the lane is done or t_rec
+// records are written; then follow_end writes the rest.
+TM_HD bool follow_walk(const FollowArgs& a, int32_t lane, FollowLane& s,
+                       const uint32_t* tile, int32_t tb, int32_t TW) {
+  // rec = (pos << 4) | fd' | has_tok<<1 | has_del<<2 | miss<<3: the low
+  // nibble is ctl bits 6..9 as they stand
+  const int32_t rows = a.rows > 1 ? a.rows : 1;
+  const uint32_t start = (uint32_t)s.start;
+  const uint32_t* at = tile - (int64_t)tb * rows;
+  int32_t t = s.t, pos = s.pos_rel, fd = s.fd;
+  bool done = s.done;
+  uint32_t* recs = a.recs + (int64_t)t * a.L + lane;
+  uint32_t* toks = a.toks + (int64_t)t * a.L + lane;
+  const int32_t end = tb + TW;
+  for (; !done && t < a.t_rec; ++t, recs += a.L, toks += a.L) {
+    if (pos >= end) break;
+    const uint32_t w = at[pos * rows + fd];
+    pos += (int32_t)(w & 63u);
+    fd = (int32_t)((w >> 6) & 1u);
+    *recs = ((start + (uint32_t)pos) << 4) | ((w >> 6) & 15u);
+    *toks = w >> 10;
+    done = pos >= s.stop;
   }
-  if (!done) a.done_all[0] = 0;
+  s.t = t;
+  s.pos_rel = pos;
+  s.fd = fd;
+  s.done = done;
+  return !done && t < a.t_rec;
+}
+
+// Zero records of a lane from its row s.t on, rows s.t + first, + step,
+// ... (the kernel's threads split them); and done_all cleared if the lane
+// did not finish.
+TM_HD void follow_end(const FollowArgs& a, int32_t lane, const FollowLane& s,
+                      int32_t first, int32_t step) {
+  for (int32_t t = s.t + first; t < a.t_rec; t += step) {
+    a.recs[(int64_t)t * a.L + lane] = 0u;
+    a.toks[(int64_t)t * a.L + lane] = 0u;
+  }
+  if (first == 0 && !s.done) a.done_all[0] = 0;
 }
 
 // -------------------------------------------------------------- compact

@@ -41,7 +41,8 @@ class MatchArgs(ctypes.Structure):
                 ("len_cls", _P), ("ovf_keys", _P), ("m", _P), ("mb", _P),
                 ("N", _I64), ("n", _I32), ("max_len", _I32),
                 ("idx1_bits", _I32), ("has_space", _I32), ("lil_off", _I32),
-                ("pad_", _I32)]
+                ("pad_", _I32), ("filt", _P), ("filt_log2", _I32),
+                ("n_cls", _I32), ("disp_words", _I32), ("pad2_", _I32)]
 
 
 class DecideArgs(ctypes.Structure):
@@ -140,6 +141,13 @@ def load_library():
             lib.tm_decide_launch.argtypes = [ctypes.POINTER(DecideArgs),
                                              ctypes.c_int, _P]
             lib.tm_decide_launch.restype = ctypes.c_int
+            lib.tm_match_smem.argtypes = [ctypes.POINTER(MatchArgs),
+                                          ctypes.POINTER(ctypes.c_int)]
+            lib.tm_match_smem.restype = ctypes.c_int
+            lib.tm_match_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            lib.tm_match_tile.restype = ctypes.c_int
+            lib.tm_follow_tile.argtypes = [ctypes.POINTER(FollowArgs)]
+            lib.tm_follow_tile.restype = ctypes.c_int
             lib.tm_error_string.argtypes = [ctypes.c_int]
             lib.tm_error_string.restype = ctypes.c_char_p
             _lib = lib

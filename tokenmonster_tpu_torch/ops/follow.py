@@ -9,10 +9,13 @@ current fd row through ``chunk + overlap`` bytes, one record per step:
 Steps after a lane finishes are zero.  ``done_all`` is 1 iff every lane
 finished within ``t_rec`` steps (the stitch's record-window check).
 
-The kernel is ``follow_kernel`` in ``csrc/tm_kernels.cu`` (per-thread body
-``tmk::follow_lane``).  It reads the (rows, N) decision words in place: no
-lane-window transpose, and any lane count (the JAX kernel's 128..512 lanes
-in multiples of 128 is a TPU layout rule).
+The kernel is ``follow_kernel`` in ``csrc/tm_kernels.cu``: each block
+copies the windows of a few lanes (``ctl | tok << 10`` of every fd row)
+into shared memory and one thread per lane walks its chain there, tile by
+tile when a window exceeds the shared memory (per-lane steps
+``tmk::follow_walk`` in ``csrc/tm_kernels.cuh``).  Any lane count works
+(the JAX kernel's 128..512 lanes in multiples of 128 is a TPU layout
+rule).
 """
 
 from __future__ import annotations

@@ -2,10 +2,11 @@
 vocabularies, Mb(p).
 
 Port of ``tokenmonster_tpu/ops/pallas_match.py::make_match_kernel``.  The
-kernel is ``match_kernel`` in ``csrc/tm_kernels.cu`` (per-thread body
-``tmk::match_at`` in ``csrc/tm_kernels.cuh``); ``match_plain`` is the same
-function in PyTorch, written after the JAX kernel (packed text windows,
-masked field compares) rather than after the CUDA one (byte compares).
+kernel is ``match_kernel`` in ``csrc/tm_kernels.cu`` (text tiles and the
+small tables in shared memory, a key filter before each hash-table probe;
+per-position body ``tmk::match_window`` in ``csrc/tm_kernels.cuh``);
+``match_plain`` is the same function in PyTorch, written after the JAX
+kernel (packed text windows, masked field compares, every length probed).
 
 Output words: ``(idx << 6) | len``, 0 = no match.  ``Mb(p)`` is the longest
 match of the virtual space plus ``text[p:]``, its length counting the space
@@ -18,9 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from tokenmonster_tpu.ops.hashmatch import C1, C2, SEED, key_masks
-
 from . import _build
+from .hashmatch import C1, C2, SEED, key_masks
 from .tables import D_DOFF, D_FOFF, D_STRIDE, DeviceTables
 
 M32 = 0xFFFFFFFF
@@ -153,17 +153,30 @@ def match(text: torch.Tensor, n: int, tabs: DeviceTables):
         raise ValueError(f"n={n} outside [0, {text.numel()}]")
     if text.device.type == "cpu":
         return match_plain(text, n, tabs)
+    if tabs.max_len + (tabs.lil_off if tabs.has_space else 0) > 63:
+        raise ValueError(f"keys of {tabs.max_len} bytes: a match word holds "
+                         "its length in 6 bits, so keys end at 63 bytes "
+                         "(the virtual space included)")
     dev = text.device
     N = text.numel()
     _build.check(text, "text", torch.uint8, dev, (N,))
     m = torch.empty(N, dtype=torch.int32, device=dev)
     mb = torch.empty(N, dtype=torch.int32, device=dev) if tabs.has_space \
         else m
+    args = match_args(text, n, tabs, m, mb)
+    _build.launch("match", args, dev)
+    return (m, mb) if tabs.has_space else m
+
+
+def match_args(text: torch.Tensor, n: int, tabs: DeviceTables,
+               m: torch.Tensor, mb: torch.Tensor) -> _build.MatchArgs:
+    """The kernel's argument struct for these tensors, each checked."""
+    dev, N = text.device, text.numel()
     for name in ("fields", "disp", "single", "space_single", "scalars",
-                 "desc", "len_cls"):
+                 "desc", "len_cls", "filt"):
         _build.check(getattr(tabs, name), name, torch.int32, dev)
     _build.check(tabs.ovf_keys, "ovf_keys", torch.uint8, dev)
-    args = _build.MatchArgs(
+    return _build.MatchArgs(
         text=text.data_ptr(), fields=tabs.fields.data_ptr(),
         disp=tabs.disp.data_ptr(), single=tabs.single.data_ptr(),
         space_single=tabs.space_single.data_ptr(),
@@ -171,7 +184,7 @@ def match(text: torch.Tensor, n: int, tabs: DeviceTables):
         len_cls=tabs.len_cls.data_ptr(), ovf_keys=tabs.ovf_keys.data_ptr(),
         m=m.data_ptr(), mb=mb.data_ptr(), N=N, n=n, max_len=tabs.max_len,
         idx1_bits=tabs.idx1_bits, has_space=int(tabs.has_space),
-        lil_off=tabs.lil_off)
-    _build.launch("match", args, dev)
-    return (m, mb) if tabs.has_space else m
+        lil_off=tabs.lil_off, filt=tabs.filt.data_ptr(),
+        filt_log2=tabs.filt_log2, n_cls=tabs.desc.shape[0],
+        disp_words=tabs.disp.numel())
 

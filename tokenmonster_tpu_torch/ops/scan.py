@@ -31,7 +31,7 @@ import logging
 import numpy as np
 import torch
 
-from ..native import native_vocab
+from ..native import NativeVocab
 from . import _build
 from .decide import decide, resolve_device
 from .follow import follow
@@ -78,9 +78,9 @@ class GpuTokenizer:
     "full" record window, or "host" after a fallback) show which path the
     last call took; ``fallbacks`` counts, by cause ("missing_byte",
     "junction"), the texts the device path handed to the native tokenizer,
-    and ``host_fallbacks`` is their total.  ``hashmatch_tables`` (the JAX
-    package's numpy match tables of ``vocab``) shares one placement build;
-    None builds it here."""
+    and ``host_fallbacks`` is their total.  ``hashmatch_tables`` (a numpy
+    match-table placement of ``vocab``, this package's or the JAX
+    package's) shares one placement build; None builds it here."""
 
     def __init__(self, vocab, chunk: int = 2048, device="cuda",
                  hashmatch_tables=None):
@@ -253,7 +253,7 @@ class GpuTokenizer:
             raise RuntimeError("a lane overflowed the full record window, "
                                "which holds every record a lane can emit: "
                                "a fault of the decide or follow kernel")
-        ids, missing = native_vocab(self.vocab).tokenize(bytes(data))
+        ids, missing = NativeVocab(self.vocab).tokenize(bytes(data))
         if res == "missing_byte" and (missing == 0 or self.tables.has_unk):
             raise RuntimeError("a kept record emitted no token, but the text "
                                "has no byte the vocabulary lacks: a fault of "

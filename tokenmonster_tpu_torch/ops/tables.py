@@ -2,30 +2,68 @@
 
 Port of ``tokenmonster_tpu/ops/scan.py::DeviceVocab`` as the Pallas engine
 uses it, without the Aho-Corasick automaton that only the XLA engines read.
-The numpy arrays are the JAX package's own: the hash-match planes come from
-``tokenmonster_tpu.ops.hashmatch`` (imported, framework-free), and the few
-numpy helpers that live in jax-importing modules are copied below, each
-naming its original.  ``tests/test_torch_tables.py`` holds every copy equal
-to its original.  ``DeviceTables`` carries them to a device as buffers;
-``CandidateTables`` is one trainer candidate's masked view of a superset's.
+The numpy arrays are the JAX package's: the hash-match planes come from
+``ops/hashmatch.py`` (this package's copy of the JAX package's numpy CHD
+placement), and the few numpy helpers that live in jax-importing modules
+there are copied below, each naming its original.
+``tests/test_torch_tables.py`` holds every copy equal to its original.
+``DeviceTables`` carries them to a device as buffers; ``CandidateTables``
+is one trainer candidate's masked view of a superset's.
+``from_reference_tables`` takes a placement built by the JAX package
+(its ``HashMatchTables``) into this package's class, field by field.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 from torch import nn
 
-from tokenmonster_tpu.core.tokenmeta import DOES_NOT_EXIST
-from tokenmonster_tpu.ops.hashmatch import (HashMatchTables, build_hashmatch,
-                                            compose_fields, disp_plane)
+from ..core.tokenmeta import DOES_NOT_EXIST
+from .hashmatch import (SEED, ClassTable, HashMatchTables, build_hashmatch,
+                        compose_fields, disp_plane)
 
 # Per-class descriptor layout: the D_* enum of csrc/tm_kernels.cuh.
 (D_LEN, D_S, D_BBITS, D_SALT, D_NF, D_FOFF, D_STRIDE, D_DOFF, D_NOVF,
  D_OVF_BYTES, D_OVF_SCALARS, D_NSCALE, D_SCALE) = range(13)
 DESC_W = 32
 MAX_SCALE = DESC_W - D_SCALE
+
 MAX_ENTRIES = 1 << 20   # token words pack 20-bit dictionary indices
+# The match kernel's key filter: two bits per (key length, key hash), set
+# for every key of the placement, so a probe with either bit clear cannot
+# hit.  Bit 1: the top bits of x = (h + l*LEN_MULT)*MULT; bit 2: the top
+# bits of (x ^ x >> 15) * MULT2 (u32).
+FILTER_MULT = 0x27D4EB2F
+FILTER_MULT2 = 0x2C1B3C6D
+FILTER_LEN_MULT = 0x9E3779B9
+FILTER_BITS_PER_KEY = 16
+FILTER_MAX_LOG2 = 20        # at most 2^20 bits (128 KiB of shared memory)
+
+
+def from_reference_tables(tables) -> HashMatchTables:
+    """``tables`` as this package's ``HashMatchTables``: returned as it is
+    when it is one already; a placement of the JAX package
+    (``tokenmonster_tpu.ops.hashmatch.HashMatchTables``, or any dataclass
+    with the same fields) is copied field by field, its class tables
+    likewise, sharing the numpy arrays.  Raises TypeError for anything
+    else."""
+    if isinstance(tables, HashMatchTables):
+        return tables
+
+    def copy(obj, cls):
+        try:
+            return cls(**{f.name: getattr(obj, f.name)
+                          for f in dataclasses.fields(cls)})
+        except AttributeError as e:
+            raise TypeError(f"{type(obj).__name__} is not a hash-match "
+                            f"placement: {e}") from e
+
+    out = copy(tables, HashMatchTables)
+    out.classes = [copy(c, ClassTable) for c in tables.classes]
+    return out
 
 
 def single_tbl(single: np.ndarray, alive: np.ndarray | None = None):
@@ -120,7 +158,10 @@ def class_descriptors(tables: HashMatchTables, flat: tuple):
 
     Returns (desc (n_cls, DESC_W) int32, len_cls (max_len+1,) int32 class of
     each key length or -1, fields int32, disp int32, ovf_keys uint8): the
-    class planes concatenated, with each class's offsets in ``desc``."""
+    class planes concatenated, with each class's offsets in ``desc``.  The
+    displacement planes keep only their packed words (one per two
+    buckets), not the TPU layout's row padding, so they are compact enough
+    for the match kernel to hold in shared memory."""
     classes = tables.classes
     max_len = max((c.length for c in classes), default=0)
     n_idx = 2 if tables.has_space else 1
@@ -131,7 +172,8 @@ def class_descriptors(tables: HashMatchTables, flat: tuple):
     s_off = 1                      # scalars[0] is space_empty+1
     for ci, c in enumerate(classes):
         planes = flat[ci]
-        dp = flat[len(classes) + ci].reshape(-1)
+        dp = flat[len(classes) + ci].reshape(-1)[:-(-max(2, 1 << c.b_bits)
+                                                   // 2)]
         scale = c.scale
         if len(scale) > MAX_SCALE:
             raise ValueError(f"class {c.length}: {len(scale)} NAF terms of "
@@ -166,6 +208,50 @@ def class_descriptors(tables: HashMatchTables, flat: tuple):
             cat(disp, np.int32), cat(ovf, np.uint8))
 
 
+def _key_hashes(keys: np.ndarray) -> np.ndarray:
+    """``hashmatch.poly_hash`` of each row of a (K, l) uint8 key array."""
+    h = np.full(len(keys), SEED, np.uint32)
+    for j in range(keys.shape[1]):
+        h = h * np.uint32(257) + keys[:, j].astype(np.uint32)
+        h ^= h >> np.uint32(11)
+    return h
+
+
+def filter_mix(h: np.ndarray, length: int):
+    """The two u32 words whose top bits index a window's filter bits."""
+    x = (h + np.uint32((length * FILTER_LEN_MULT) & 0xFFFFFFFF)) \
+        * np.uint32(FILTER_MULT)
+    return x, (x ^ (x >> np.uint32(15))) * np.uint32(FILTER_MULT2)
+
+
+def key_filter(tables: HashMatchTables):
+    """The match kernel's key filter: (words int32 [2^(log2-5)], log2).  For
+    every key of every class (placed or overflow), the two bits at the top
+    ``log2`` bits of the words of ``filter_mix(h, l)`` (h the key's poly
+    hash, l its length) are set; a text window with either bit clear holds
+    no key of that length, so the kernel skips its probe.  About
+    FILTER_BITS_PER_KEY bits per key, at most 2^FILTER_MAX_LOG2 bits: at
+    16 bits per key two bits leave a false-positive rate near
+    (1 - exp(-2/16))^2 = 1.4%.  A trainer superset's filter serves every
+    candidate masked from it."""
+    parts = []
+    for c in tables.classes:
+        keys = c.slot_keys[c.occupied].reshape(-1, c.length)
+        if c.ovf_keys:
+            keys = np.concatenate([keys, np.frombuffer(
+                b"".join(bytes(k) for k in c.ovf_keys),
+                np.uint8).reshape(-1, c.length)])
+        parts += filter_mix(_key_hashes(keys), c.length)
+    h = np.concatenate(parts) if parts else np.zeros(0, np.uint32)
+    log2 = max(int(len(h) // 2 * FILTER_BITS_PER_KEY - 1).bit_length(), 5)
+    log2 = min(log2, FILTER_MAX_LOG2)
+    bit = (h >> np.uint32(32 - log2)).astype(np.int64)
+    words = np.zeros(1 << (log2 - 5), np.uint32)
+    np.bitwise_or.at(words, bit >> 5, np.uint32(1) << (bit & 31).astype(
+        np.uint32))
+    return words.view(np.int32), log2
+
+
 def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -192,12 +278,13 @@ class DeviceTables(nn.Module):
 
     Match: the flat composed field planes, displacement planes, the
     single-byte tables, the scalar vector (``smem_scalars``), the class
-    descriptors and the overflow keys.  Decide: the two meta planes and the
+    descriptors, the overflow keys and the key filter (``key_filter``).  Decide: the two meta planes and the
     begin-byte table.  Id resolution: ``ids3``.  All integer buffers hold
     u32 bit patterns as int32."""
 
-    def __init__(self, vocab, tables: HashMatchTables):
+    def __init__(self, vocab, tables):
         super().__init__()
+        tables = from_reference_tables(tables)
         if len(vocab.tokens) >= MAX_ENTRIES:
             raise NotImplementedError(
                 "token words pack 20-bit dictionary indices: vocabularies "
@@ -215,6 +302,8 @@ class DeviceTables(nn.Module):
         self.register_buffer("desc", _t(desc))
         self.register_buffer("len_cls", _t(len_cls))
         self.register_buffer("ovf_keys", _t(ovf))
+        filt, self.filt_log2 = key_filter(tables)
+        self.register_buffer("filt", _t(filt))
         planes, bb = build_meta_planes(vocab)
         self.register_buffer("meta", _t(planes.reshape(2, -1)))
         self.register_buffer("bb", _t(bb.reshape(-1).astype(np.int32)))
@@ -239,16 +328,17 @@ class CandidateTables:
     ``fields``, ``single``, ``space_single`` and ``scalars``; the
     candidate's ``meta`` planes and ``ids3`` at superset positions and its
     ``bb``; its unk and delete ids.  Shared with the superset and never
-    written: ``disp``, ``desc``, ``len_cls``, ``ovf_keys`` and the host
-    geometry.  Every per-candidate tensor has its superset counterpart's
+    written: ``disp``, ``desc``, ``len_cls``, ``ovf_keys``, the key filter
+    and the host geometry.  Every per-candidate tensor has its superset counterpart's
     shape and type, or the constructor raises: the geometry never changes
     between candidates."""
 
     def __init__(self, base: DeviceTables, vocab, flat: tuple,
                  scalars: np.ndarray, planes: np.ndarray, bb: np.ndarray,
                  ids3_sup: np.ndarray):
-        for name in ("disp", "desc", "len_cls", "ovf_keys", "classes",
-                     "max_len", "idx1_bits", "has_space"):
+        for name in ("disp", "desc", "len_cls", "ovf_keys", "filt",
+                     "filt_log2", "classes", "max_len", "idx1_bits",
+                     "has_space"):
             setattr(self, name, getattr(base, name))
         n_cls = len(base.classes)
         space = (flat[2 * n_cls + 1] if base.has_space
@@ -279,12 +369,13 @@ def space_prefix(vocab) -> bytes | None:
     return b" \x00" if vocab.charset == 2 else b" "
 
 
-def upload_tables(vocab, hashmatch_tables: HashMatchTables | None = None,
-                  device="cpu") -> DeviceTables:
+def upload_tables(vocab, hashmatch_tables=None, device="cpu") -> DeviceTables:
     """Carry a vocabulary's kernel tables to ``device``.  The hash-match
-    tables are the JAX package's numpy tables (``build_hashmatch``); pass
-    them to share one build with it, or leave None to build them here."""
+    tables are a numpy placement (``build_hashmatch``): pass one, this
+    package's or the JAX package's (``from_reference_tables``), to share
+    one build, or leave None to build it here."""
     if hashmatch_tables is None:
         hashmatch_tables = build_hashmatch(vocab.tokens,
                                            space_prefix=space_prefix(vocab))
-    return DeviceTables(vocab, hashmatch_tables).to(device)
+    return DeviceTables(vocab, from_reference_tables(hashmatch_tables)).to(
+        device)

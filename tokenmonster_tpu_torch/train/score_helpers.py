@@ -19,9 +19,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from tokenmonster_tpu.core.tokenmeta import DOES_NOT_EXIST
-from tokenmonster_tpu.ops.hashmatch import HashMatchTables
-
+from ..core.tokenmeta import DOES_NOT_EXIST
+from ..ops.hashmatch import HashMatchTables
 from ..ops.scan import GpuTokenizer
 from ..ops.tables import (CandidateTables, build_meta_planes, flat_tables,
                           smem_scalars)
