@@ -9,7 +9,9 @@ two forward-delete rows; a capcode-0 vocabulary for the one-row match and
 decide), drives the main path ``load(vocab, device="cuda").tokenize(text)``
 over at least 4 MiB of real text and a mixed batch, checks the ids against
 the native host tokenizer, shows the counted host fallback, and times each
-kernel beside its plain version, the staged device chain, the end-to-end
+kernel beside its plain version and an empty kernel (the launch floor),
+launched back to back from the host (``ms``) and queued behind a spin (the
+card alone, ``device_ms``), then the staged device chain, the end-to-end
 call and the native tokenizer.
 
 The trainer phase distils a getalltokens pool of 8 MiB of real text toward
@@ -78,6 +80,8 @@ LIBRARY = {                   # why no single PyTorch call computes it
 }
 
 
+HOLD_CYCLES = 4_000_000       # about 2 ms at the card's clock: the host
+                              # queues 10 launches in well under that
 T0 = time.perf_counter()
 
 
@@ -107,16 +111,24 @@ def fnv1a64(ids) -> int:
     return h
 
 
-def cuda_ms(fn, repeat: int = REPEAT, calls: int = 10) -> float:
-    """Milliseconds per call of ``fn`` on the card: CUDA events around
-    ``calls`` back-to-back calls, median of ``repeat`` such runs, after one
-    warm-up call.  A call shorter than its host-side launch cost measures
-    that cost."""
+def cuda_ms(fn, repeat: int = REPEAT, calls: int = 10,
+            queued: bool = False) -> float:
+    """Milliseconds per call of ``fn``: CUDA events around ``calls``
+    back-to-back calls, median of ``repeat`` such runs, after one warm-up
+    call.  A call shorter than its host-side launch cost measures that
+    cost: what a caller sees who launches from the host as fast as it can.
+    ``queued``: a kernel that spins for HOLD_CYCLES holds the stream while
+    the host queues every call behind it, so the events time the card
+    alone, the gaps between its launches included."""
+    from tokenmonster_tpu_torch.ops import _build
+    dev = torch.device("cuda", torch.cuda.current_device())
     fn()
     times = []
     for _ in range(repeat):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            _build.spin(dev, HOLD_CYCLES)
         start.record()
         for _ in range(calls):
             fn()
@@ -172,11 +184,14 @@ def match_work(buf, n: int, tabs):
 
 
 def decide_work(m, mb, buf, tabs):
-    """The match words and text read, the metadata planes, the ctl and tok
-    words written; about 60 operations per branch score set (6 branches of
-    about 10) per position and row."""
+    """The match words, text and meta planes read (what the function
+    needs: the kernel's own table, derived from the planes and larger, is
+    a cost of its design), the ctl and tok words written; about 60
+    operations per branch score set (6 branches of about 10) per position
+    and row."""
     rows = 2 if mb is not None else 1
-    ins = nbytes(m, buf, tabs.meta, tabs.bb) + (nbytes(mb) if rows > 1 else 0)
+    ins = nbytes(m, buf, tabs.meta, tabs.bb) + (nbytes(mb) if rows > 1
+                                                else 0)
     return ins + 2 * 4 * rows * buf.numel(), 60 * rows * buf.numel()
 
 
@@ -188,15 +203,16 @@ def follow_work(recs):
     return 8 * steps + 2 * nbytes(recs), 10 * steps
 
 
-def compact_work(kept: int, lanes: int):
-    """The kept records and token words read, the lanes' ranges, the words
-    written; two operations a word."""
-    return 8 * kept + 12 * lanes + 4 * kept, 2 * kept
+def compact_work(kept: int, lanes: int, out_len: int):
+    """The kept records and token words read, the lanes' ranges, every
+    word of the output written (the kept words and the zeros); two
+    operations a kept word."""
+    return 8 * kept + 12 * lanes + 4 * out_len, 2 * kept
 
 
 def smem_plan(buf, n: int, tabs, lanes: int, chunk: int, t_rec: int) -> str:
-    """How the match and follow kernels use shared memory at these shapes,
-    as their launchers plan it on this card."""
+    """How the match, decide and follow kernels use shared memory at these
+    shapes, as their launchers plan it on this card."""
     import ctypes
 
     from tokenmonster_tpu_torch.ops import _build
@@ -210,10 +226,22 @@ def smem_plan(buf, n: int, tabs, lanes: int, chunk: int, t_rec: int) -> str:
                            n=n, chunk=chunk, overlap=128,
                            W=window(chunk, 128), L=lanes, t_rec=t_rec)
     tile = lib.tm_follow_tile(ctypes.byref(fa))
+    d_bytes = ctypes.c_int(0)
+    d_tile = lib.tm_decide_tile(ctypes.byref(d_bytes))
+    d_regs = ctypes.c_int(0)
+    d_blocks = lib.tm_decide_occupancy(ctypes.byref(d_regs))
     where = "shared" if disp.value else "global"
     return (f"match {m_bytes} B per block, displacements "
             f"({nbytes(tabs.disp)} B) in {where} memory, key filter "
-            f"{1 << tabs.filt_log2} bits; follow tile {tile} of the {fa.W}-position window per lane and row")
+            f"{1 << tabs.filt_log2} bits; decide {d_bytes.value} B per "
+            f"block: one 8-byte pair for each of a tile's {d_tile} positions "
+            f"and the 128 after it, the per-token entries "
+            f"({nbytes(tabs.entries)} B) gathered from global memory once "
+            f"per position and fd row, "
+            f"{d_regs.value} registers a thread, {d_blocks} blocks of 256 "
+            f"threads an SM; "
+            f"follow tile {tile} of the {fa.W}-position window per lane "
+            f"and row")
 
 
 def stage_pairs(vocab, raw: bytes, device, downstream: bool):
@@ -258,7 +286,7 @@ def stage_pairs(vocab, raw: bytes, device, downstream: bool):
         lambda: stitch.compact(recs, toks, s, e, q, cap),
         lambda: stitch.compact_plain(recs, toks, s, e, q, cap))
     work["follow"] = follow_work(recs)
-    work["compact"] = compact_work(int(counts.sum()), LANES)
+    work["compact"] = compact_work(int(counts.sum()), LANES, cap)
     return (buf.numel(), pairs, work,
             smem_plan(buf, n, tabs, LANES, CHUNK, t_rec))
 
@@ -405,6 +433,7 @@ def trainer_phase(dev, card: str) -> dict:
 
     from tokenmonster_tpu_torch.native import load_native
     from tokenmonster_tpu_torch.ops import _build
+    from tokenmonster_tpu_torch.ops.tables import decide_entries
     from tokenmonster_tpu_torch.parallel.score import score_strips
     from tokenmonster_tpu_torch.train import trainvocab as port
     from tokenmonster_tpu_torch.train.score_helpers import \
@@ -564,17 +593,37 @@ def trainer_phase(dev, card: str) -> dict:
         kernel, plain = pairs[name]
         b_ms, b_by = bound(*cwork[name])
         ms = cuda_ms(kernel)
+        device_ms = cuda_ms(kernel, queued=True)
         plain_ms = cuda_ms(plain, calls=1)
         out[name] = {"trainer_launches": launches[name],
                      "trainer_max_abs_err": errs[name], "trainer_ms": ms,
+                     "trainer_device_ms": device_ms,
                      "trainer_plain_ms": plain_ms,
                      "trainer_bound_ms": b_ms, "trainer_bound_by": b_by,
-                     "trainer_roofline_share": b_ms / ms}
-        print(f"{name}: trainer shapes kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                     "trainer_roofline_share": b_ms / ms,
+                     "trainer_device_roofline_share": b_ms / device_ms}
+        print(f"{name}: trainer shapes kernel {ms:.4f} ms launched back to "
+              f"back from the host ({device_ms:.4f} on the card alone), "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
               f"{cwork[name][0]} B, {cwork[name][1]} ops), roofline "
-              f"{100 * b_ms / ms:.2f}% (N={t.buf.numel()}, {LANES} lanes, "
+              f"{100 * b_ms / ms:.2f}% ({100 * b_ms / device_ms:.2f}% of "
+              f"the card alone) (N={t.buf.numel()}, {LANES} lanes, "
               f"masked superset of {len(sup.vocab.tokens)}) [{card}]")
+    # a candidate's decide table is built around the launches, by torch ops
+    # on its uploaded planes: no kernel's time or bound holds it
+    rows = tabs.entries.shape[0]
+    e_ms = cuda_ms(lambda: decide_entries(tabs.meta, rows))
+    e_device_ms = cuda_ms(lambda: decide_entries(tabs.meta, rows), calls=1,
+                          queued=True)
+    out["decide"].update(trainer_entries_ms=e_ms,
+                         trainer_entries_device_ms=e_device_ms)
+    per_cand = launches["decide"] / max(len(scored), 1)
+    print(f"decide_entries: a candidate's table ({nbytes(tabs.entries)} B "
+          f"from planes of {nbytes(tabs.meta)} B, torch ops) {e_ms:.4f} ms "
+          f"from the host, {e_device_ms:.4f} on the card alone, once a "
+          f"candidate, beside {per_cand:.0f} decide launches a candidate "
+          f"of {out['decide']['trainer_ms']:.4f} "
+          f"({out['decide']['trainer_device_ms']:.4f}) ms [{card}]")
     print(f"shared memory at trainer shapes: "
           f"{smem_plan(t.buf, t.n, tabs, LANES, tk.chunk, t.t_rec)}")
     require(not failed, f"trainer phase: {len(failed)} checks failed")
@@ -700,24 +749,41 @@ def main() -> int:
           f"{len(fids)} ids equal native, native missing {wfm}")
 
     phase(f"times on {card} (median of {REPEAT} runs)")
+    # what a launch costs: an empty kernel through the wrappers' launch
+    # path, timed as the kernels are: launched back to back from the host
+    # (its enqueue included, the slower side for every short kernel), and
+    # queued behind a spin (the card alone)
+    floor_ms = cuda_ms(lambda: _build.spin(dev))
+    floor_device_ms = cuda_ms(lambda: _build.spin(dev), queued=True)
+    print(f"launch floor: an empty kernel {floor_ms:.4f} ms per launch "
+          f"back to back from the host, {floor_device_ms:.4f} ms on the "
+          f"card alone [{card}]")
     kernels = []
     for name in TPU_KERNELS:
         kernel, plain = pairs[name]
         ms = cuda_ms(kernel)
+        device_ms = cuda_ms(kernel, queued=True)
         plain_ms = cuda_ms(plain, calls=1)
         b_ms, b_by = bound(*work[name])
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by}, {work[name][0]} B, "
-              f"{work[name][1]} ops), roofline {100 * b_ms / ms:.2f}% "
+        print(f"{name}: kernel {ms:.4f} ms launched back to back from the "
+              f"host, {ms / floor_ms:.1f}x the launch floor ({device_ms:.4f} "
+              f"on the card alone, {device_ms / floor_device_ms:.1f}x that "
+              f"floor), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {work[name][0]} B, {work[name][1]} ops), roofline "
+              f"{100 * b_ms / ms:.2f}% ({100 * b_ms / device_ms:.2f}% of "
+              f"the card alone) "
               f"(N={N}, {LANES} lanes; no library call: {LIBRARY[name]}) "
               f"[{card}]")
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": TPU_KERNELS[name],
                         "launches": launches[name],
                         "max_abs_err": errs[name], "ms": ms,
+                        "device_ms": device_ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "roofline_share": b_ms / ms,
-                        "library_ms": None})
+                        "device_roofline_share": b_ms / device_ms,
+                        "library_ms": None, "launch_floor_ms": floor_ms,
+                        "launch_floor_device_ms": floor_device_ms})
     print(f"shared memory at main-path shapes: {plan}")
     staged = tk.stage(norm)
     tk.tokenize_staged(staged)
@@ -754,7 +820,8 @@ def main() -> int:
     for k in kernels:
         k.update(trainer.get(k["name"], {}))
 
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms,
+                      "launch_floor_device_ms": floor_device_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

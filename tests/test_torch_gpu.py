@@ -215,6 +215,106 @@ def test_decide_kernel_equals_plain(dispatch):
         _equal(g, w)
 
 
+def _decide_tile():
+    smem = ctypes.c_int(0)
+    return _build.load_library().tm_decide_tile(ctypes.byref(smem))
+
+
+@pytest.mark.parametrize("cut", [1, 130, 777])
+def test_decide_kernel_at_the_end_of_the_buffer(dispatch, cut):
+    """A buffer that ends where the text ends, its length no multiple of
+    the kernel's tile: the last block is partly filled and its lookahead
+    lies past N, read as zeros; one launch counted per call."""
+    tk, buf, n = dispatch
+    tile = _decide_tile()
+    N = (n - cut) // tile * tile - cut
+    assert N % tile and N > 100 * tile
+    short = buf[:N].clone()
+    m, mb = _decisions(tk, short, N)
+    before = _build.launches["decide"]
+    got = decide(m, mb, short, N, tk.tables)
+    assert _build.launches["decide"] == before + 1
+    want = decide_plain(m, mb, short, N, tk.tables)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _equal(g, w)
+
+
+def _dirty(n_words, device):
+    """Leave nonzero words where the allocator will place the next tensor
+    of this size, so a kernel that skips a word of its output shows."""
+    torch.cuda.synchronize()
+    t = torch.full((n_words,), 0x5A5A5A5A, dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    del t
+
+
+def _compact_both(recs, toks, s, e, q, out_len):
+    _dirty(out_len, recs.device)
+    before = _build.launches["compact"]
+    got = stitch.compact(recs, toks, s, e, q, out_len)
+    assert _build.launches["compact"] == before + 1
+    want = stitch.compact_plain(recs, toks, s, e, q, out_len)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    return want
+
+
+@pytest.mark.parametrize("L", [1, 5, 512])
+def test_compact_kernel_writes_every_word(cuda, L):
+    """Seeded record grids of L lanes with gaps between the lanes' slots,
+    empty lanes, ranges ending at T - 1, slots before 0 and past out_len:
+    the whole output equals the plain version's, the zeros the kernel
+    writes included, in an output buffer that held other words."""
+    T, out_len = 1024, 700 * L + 77
+    rng = np.random.default_rng(L)
+    recs = torch.tensor(rng.integers(1, 1 << 20, (T, L)), dtype=torch.int32,
+                        device=cuda)
+    toks = torch.tensor(rng.integers(1, 1 << 22, (T, L)), dtype=torch.int32,
+                        device=cuda)
+    s = rng.integers(-3, 300, L)
+    e = s + rng.integers(0, 400, L)
+    s[::4] = rng.integers(600, T, len(s[::4]))
+    e[::4] = T - 1
+    e[2::5] = s[2::5] - 1
+    span = np.maximum(e.clip(max=T - 1) - s.clip(min=0) + 1, 0)
+    q = np.cumsum(span + 3) - span - s.clip(min=0)
+    q[0] = -s[0].clip(min=0) - 2
+    if L > 1:
+        q[-1] = out_len - 4 - s[-1].clip(min=0)
+    assert (np.cumsum(span + 3))[-1] < out_len - 4 or L == 1
+    s, e, q = (torch.tensor(v, dtype=torch.int32, device=cuda)
+               for v in (s, e, q))
+    want = _compact_both(recs, toks, s, e, q, out_len)
+    assert (want != 0).any() and (want == 0).any()
+
+
+def test_compact_kernel_on_one_long_lane(cuda):
+    """The grid of a bridge or repair lane: one lane of a long span with
+    the full record window, thousands of record tiles for one column."""
+    v = _real32k()
+    chunk = 70_000
+    raw, _dropped = stdlib_text(v, chunk + 4096)
+    data = v.normalize(raw)[:chunk]
+    tk = GpuTokenizer(v, device=cuda)
+    buf = torch.zeros(chunk + 4096, dtype=torch.uint8, device=cuda)
+    buf[:len(data)] = torch.tensor(list(data), dtype=torch.uint8,
+                                   device=cuda)
+    n = len(data)
+    m, mb = match(buf, n, tk.tables)
+    ctl, tok = decide(m, mb, buf, n, tk.tables)
+    t_rec = tk._t_rec(True, chunk)
+    recs, toks, done = follow(ctl, tok, n, chunk, 1, OVERLAP_SCAN, t_rec)
+    assert int(done) == 1
+    _f, keep, _sn, ok, s, e = stitch.stitched_keep(recs, 0, 0, True)
+    assert bool(ok)
+    counts = keep.sum(0)
+    q = (counts.cumsum(0) - counts - s).to(torch.int32)
+    s, e = s.to(torch.int32), e.clamp(max=t_rec - 1).to(torch.int32)
+    want = _compact_both(recs, toks, s, e, q, t_rec)
+    assert int((want != 0).sum()) > 10_000
+
+
 @pytest.mark.parametrize("full", [False, True])
 def test_follow_and_compact_kernels_equal_plain(dispatch, full):
     tk, buf, n = dispatch
@@ -233,10 +333,7 @@ def test_follow_and_compact_kernels_equal_plain(dispatch, full):
     counts = keep.sum(0)
     q = (counts.cumsum(0) - counts - s).to(torch.int32)
     s, e = s.to(torch.int32), e.clamp(max=t_rec - 1).to(torch.int32)
-    got_c = stitch.compact(recs, toks, s, e, q, t_rec * LANES)
-    want_c = stitch.compact_plain(recs, toks, s, e, q, t_rec * LANES)
-    torch.cuda.synchronize()
-    _equal(got_c, want_c)
+    _compact_both(recs, toks, s, e, q, t_rec * LANES)
 
 
 def test_tokenizer_on_card_equals_native(cuda):

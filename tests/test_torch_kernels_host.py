@@ -40,9 +40,13 @@ def host_lib(tmp_path_factory):
         getattr(lib, f"tm_{name}_host").argtypes = [ctypes.POINTER(struct),
                                                     ctypes.c_int]
     lib.tm_match_tile.restype = ctypes.c_int
-    lib.tm_compact_host.argtypes = [ctypes.POINTER(_build.CompactArgs)]
+    lib.tm_compact_host.argtypes = [ctypes.POINTER(_build.CompactArgs),
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.tm_compact_tile.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int)]
     lib.tm_decide_host.argtypes = [ctypes.POINTER(_build.DecideArgs),
                                    ctypes.c_int]
+    lib.tm_decide_tile.restype = ctypes.c_int
     return lib
 
 
@@ -104,18 +108,19 @@ def test_match_host_edges_equal_plain(host_lib, capcode):
             assert torch.equal(got_mb, mb)
 
 
-def _decide_host(lib, dt, buf, n, m, mb):
+def _decide_host(lib, dt, buf, n, m, mb, tile=None):
     rows = 2 if dt.has_delete else 1
+    N = buf.numel()
     got_c = torch.full((rows, N), -1, dtype=torch.int32)
     got_t = torch.full((rows, N), -1, dtype=torch.int32)
     args = _build.DecideArgs(
         m=m.data_ptr(), mb=(mb if mb is not None else m).data_ptr(),
-        text=buf.data_ptr(), meta=dt.meta.data_ptr(), bb=dt.bb.data_ptr(),
-        ctl=got_c.data_ptr(), tok=got_t.data_ptr(), N=N,
-        meta_stride=dt.meta.shape[1], n=n, has_delete=int(dt.has_delete),
-        has_unk=int(dt.has_unk), unk_token=dt.unk_token,
-        lil_off=dt.lil_off)
-    lib.tm_decide_host(ctypes.byref(args), rows)
+        text=buf.data_ptr(), entries=dt.entries.data_ptr(),
+        bb=dt.bb.data_ptr(), ctl=got_c.data_ptr(), tok=got_t.data_ptr(),
+        N=N, n_entries=dt.entries.shape[1], n=n,
+        has_delete=int(dt.has_delete), has_unk=int(dt.has_unk),
+        unk_token=dt.unk_token, lil_off=dt.lil_off)
+    lib.tm_decide_host(ctypes.byref(args), tile or lib.tm_decide_tile())
     return got_c, got_t
 
 
@@ -126,11 +131,42 @@ def test_decide_host_equals_plain(host_lib, stages):
     assert torch.equal(got_t.reshape(tok.shape), tok)
 
 
-def test_zero_advance_step_host_equals_plain(host_lib):
+@pytest.mark.parametrize("tile", [61, 37, 1])
+def test_decide_host_tiles_equal_plain(host_lib, stages, tile):
+    """Tiles of neighbourhood pairs as the kernel stages them, small and
+    odd: every decision's lookahead crosses tile edges at other offsets,
+    the last tiles' lookahead runs past the end of the buffer (zeros
+    there), on both fd rows where the vocabulary has them; the unk
+    vocabulary and charset 2 (lil_off 2) are among ``stages``."""
+    name, dt, buf, n, m, mb, ctl, tok = stages
+    assert name != "utf16" or dt.lil_off == 2
+    assert name != "unk" or dt.has_unk
+    got_c, got_t = _decide_host(host_lib, dt, buf, n, m, mb, tile)
+    assert torch.equal(got_c.reshape(ctl.shape), ctl)
+    assert torch.equal(got_t.reshape(tok.shape), tok)
+
+
+@pytest.mark.parametrize("tile", [None, 61, 37])
+def test_decide_host_at_the_end_of_the_text(host_lib, stages, tile):
+    """A buffer that ends where the text ends, its length no multiple of a
+    tile: the last decisions' second tokens and next bytes lie past N and
+    read as zeros, as in the plain version."""
+    _name, dt, buf, n, _m, _mb, _ctl, _tok = stages
+    cut = buf[:n - 3].clone()
+    mm = match_plain(cut, cut.numel(), dt)
+    m, mb = mm if dt.has_space else (mm, None)
+    ctl, tok = decide_plain(m, mb, cut, cut.numel(), dt)
+    got_c, got_t = _decide_host(host_lib, dt, cut, cut.numel(), m, mb, tile)
+    assert torch.equal(got_c.reshape(ctl.shape), ctl)
+    assert torch.equal(got_t.reshape(tok.shape), tok)
+
+
+@pytest.mark.parametrize("tile", [None, 61, 7])
+def test_zero_advance_step_host_equals_plain(host_lib, tile):
     """The fd-1 step that advances 0 bytes (torch_cases.zero_step_vocab):
-    decide and follow of the kernels' code equal the plain versions, and
-    the lanes' records hold the step (a record at the position of the one
-    before it)."""
+    decide (on the kernel's tile and on small ones) and follow of the
+    kernels' code equal the plain versions, and the lanes' records hold
+    the step (a record at the position of the one before it)."""
     v = zero_step_vocab()
     dt = upload_tables(v, hashmatch_tables(v), "cpu")
     buf = torch.zeros(N, dtype=torch.uint8)
@@ -139,7 +175,7 @@ def test_zero_advance_step_host_equals_plain(host_lib):
     n = len(ZERO_STEP_TEXT)
     m, mb = match_plain(buf, n, dt)
     ctl, tok = decide_plain(m, mb, buf, n, dt)
-    got_c, got_t = _decide_host(host_lib, dt, buf, n, m, mb)
+    got_c, got_t = _decide_host(host_lib, dt, buf, n, m, mb, tile)
     assert torch.equal(got_c, ctl) and torch.equal(got_t, tok)
     assert ((ctl[1, :n] & 63) == 0).any()
     want = follow_plain(ctl, tok, n, 64, 8, OVERLAP, 256)
@@ -188,24 +224,77 @@ def test_follow_host_tiles_equal_plain(host_lib, stages, tw):
         assert int(want[2]) == 1
 
 
-@pytest.mark.parametrize("start0,final", [(0, True), (2, False)])
-def test_compact_host_equals_plain(host_lib, stages, start0, final):
-    _name, _dt, _buf, n, _m, _mb, ctl, tok = stages
-    chunk, L, t_rec = 32, 128, 256
-    recs, toks, _done = follow_plain(ctl, tok, n, chunk, L, OVERLAP, t_rec)
-    last_lane = min(-(-n // chunk), L) - (1 if final else 2)
+def _compact_host(lib, recs, toks, s, e, q, out_len, tiles=None):
+    """The harness's compact into a buffer of ones: the kernel's code
+    writes every word, the zeros too."""
+    T, L = recs.shape
+    got = torch.ones(out_len, dtype=torch.int32)
+    args = _build.CompactArgs(
+        recs=recs.data_ptr(), toks=toks.data_ptr(), s=s.data_ptr(),
+        e=e.data_ptr(), q=q.data_ptr(), out=got.data_ptr(), out_len=out_len,
+        T=T, L=L)
+    if tiles is None:
+        recs_t, zero = ctypes.c_int(0), ctypes.c_int(0)
+        lanes_t = lib.tm_compact_tile(ctypes.byref(recs_t),
+                                      ctypes.byref(zero))
+        tiles = (lanes_t, recs_t.value, zero.value)
+    lib.tm_compact_host(ctypes.byref(args), *tiles)
+    return got
+
+
+def _kept(recs, start0, last_lane, final):
+    t_rec = recs.shape[0]
     _f, keep, _sn, _ok, s, e = stitch.stitched_keep(recs, start0, last_lane,
                                                     final)
     counts = keep.sum(0)
     q = (counts.cumsum(0) - counts - s).to(torch.int32)
-    s, e = s.to(torch.int32), e.clamp(max=t_rec - 1).to(torch.int32)
+    return (s.to(torch.int32), e.clamp(max=t_rec - 1).to(torch.int32), q,
+            int(counts.sum()))
+
+
+@pytest.mark.parametrize("tiles", [None, (5, 7, 64), (3, 61, 32)])
+@pytest.mark.parametrize("start0,final", [(0, True), (2, False)])
+def test_compact_host_equals_plain(host_lib, stages, start0, final, tiles):
+    """The kernel's tiles, and small odd ones (L = 128 no multiple of the
+    lane tile): every word of the output, the zeros the kernel's code
+    writes included."""
+    _name, _dt, _buf, n, _m, _mb, ctl, tok = stages
+    chunk, L, t_rec = 32, 128, 256
+    recs, toks, _done = follow_plain(ctl, tok, n, chunk, L, OVERLAP, t_rec)
+    last_lane = min(-(-n // chunk), L) - (1 if final else 2)
+    s, e, q, count = _kept(recs, start0, last_lane, final)
     out_len = t_rec * L
     want = stitch.compact_plain(recs, toks, s, e, q, out_len)
-    got = torch.zeros(out_len, dtype=torch.int32)
-    args = _build.CompactArgs(
-        recs=recs.data_ptr(), toks=toks.data_ptr(), s=s.data_ptr(),
-        e=e.data_ptr(), q=q.data_ptr(), out=got.data_ptr(), out_len=out_len,
-        T=t_rec, L=L)
-    host_lib.tm_compact_host(ctypes.byref(args))
+    got = _compact_host(host_lib, recs, toks, s, e, q, out_len, tiles)
     assert torch.equal(got, want)
-    assert int(counts.sum()) > 0
+    assert count > 0
+
+
+@pytest.mark.parametrize("tiles", [None, (5, 7, 64), (32, 64, 32)])
+@pytest.mark.parametrize("L", [1, 5, 45])
+def test_compact_host_odd_ranges_equal_plain(host_lib, L, tiles):
+    """Ranges a synced dispatch does not give but the kernel must take:
+    lanes whose [s, e] is empty, starts after the first record tile, ends
+    at T - 1 or past it, s negative; q negative and past out_len (those
+    records are dropped); gaps between the lanes' slots (zeros there);
+    L below and no multiple of the lane tile; out_len no multiple of the
+    zero-fill chunk."""
+    T, out_len = 150, 160 * L + 77
+    rng = np.random.default_rng(L)
+    recs = torch.tensor(rng.integers(1, 1 << 20, (T, L)), dtype=torch.int32)
+    toks = torch.tensor(rng.integers(1, 1 << 22, (T, L)), dtype=torch.int32)
+    s = rng.integers(-3, T, L)
+    e = np.minimum(s + rng.integers(0, T, L), T + 5)
+    s[::4] = rng.integers(70, T, len(s[::4]))     # after the first tiles
+    e[::4] = T - 1
+    e[2::5] = s[2::5] - 1                         # empty
+    span = np.maximum(e.clip(max=T - 1) - s.clip(min=0) + 1, 0)
+    q = np.cumsum(span + 3) - span - s.clip(min=0)  # gaps of 3 slots
+    q[0] = -s[0].clip(min=0) - 2                  # two records before slot 0
+    if L > 1:
+        q[-1] = out_len - 4 - s[-1].clip(min=0)   # runs past out_len
+    s, e, q = (torch.tensor(v, dtype=torch.int32) for v in (s, e, q))
+    want = stitch.compact_plain(recs, toks, s, e, q, out_len)
+    got = _compact_host(host_lib, recs, toks, s, e, q, out_len, tiles)
+    assert torch.equal(got, want)
+    assert (want != 0).any() and (want == 0).any()

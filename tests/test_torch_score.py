@@ -115,6 +115,9 @@ def test_candidate_state_equals_jax(masked):
     np.testing.assert_array_equal(ctabs.scalars.numpy(), se)
     np.testing.assert_array_equal(ctabs.meta.numpy(),
                                   np.asarray(planes).reshape(2, -1))
+    assert torch.equal(ctabs.entries, ttab.decide_entries(
+        torch.tensor(np.asarray(planes).reshape(2, -1)),
+        ctabs.entries.shape[0]))
     np.testing.assert_array_equal(ctabs.bb.numpy(),
                                   np.asarray(bb).reshape(-1))
     n_sup = len(pal["v_sup"].tokens)

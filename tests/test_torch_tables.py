@@ -4,6 +4,7 @@ tables.py against ops/pallas_match.py and ops/pallas_decide.py)."""
 
 import numpy as np
 import pytest
+import torch
 
 from tokenmonster_tpu.ops import pallas_decide, pallas_match
 from tokenmonster_tpu_torch.ops import hashmatch as hm
@@ -81,6 +82,55 @@ def test_device_tables_carry_the_arrays(case):
     assert dt.lil_off == (2 if v.charset == 2 else 1)
     assert dt.disp.numel() == sum(-(-max(2, 1 << c.b_bits) // 2)
                                   for c in tabs.classes)
+
+
+def test_decide_entries_hold_the_first_tokens_terms(case):
+    """The decide kernel's table against the JAX package's planes, field
+    by field: per fd row, each branch's first-token share of the score
+    and its flag bits, the alternatives' lengths less fd, how many
+    alternatives stand, and the token's own flag and word count; begin-byte
+    classes fit the class word's fields."""
+    v, tabs = case
+    dt = ttab.upload_tables(v, tabs, "cpu")
+    planes, _bb = pallas_decide.build_meta_planes(v)
+    f0, f1 = (np.asarray(p).reshape(-1).view(np.uint32).astype(np.int64)
+              for p in planes)
+    rows = 2 if dt.has_delete else 1
+    e = dt.entries.numpy().view(np.uint32).astype(np.int64)
+    assert e.shape == (rows, len(f0), ttab.E_WORDS)
+    assert dt.entries.is_contiguous()
+    flag = [f0 & 0xFF, f1 & 0xFF, f1 >> 16 & 0xFF]
+    words = [f0 >> 8 & 0xFF, f1 >> 8 & 0xFF, f1 >> 24 & 0xFF]
+    length = [None, f0 >> 16 & 0xFF, f0 >> 24 & 0xFF]
+    for fd in range(rows):
+        for r in range(3):
+            w = e[fd, :, r]
+            fnw = words[r] - fd
+            share = (flag[r] >> 7) + np.maximum(fnw - 1, 0) + 100 * fnw
+            np.testing.assert_array_equal((w >> 9 & 0x7FFF) - 100, share)
+            np.testing.assert_array_equal(w >> 7 & 1, flag[r] & 1)
+            np.testing.assert_array_equal(w >> 8 & 1, flag[r] >> 3 & 1)
+            if r:
+                np.testing.assert_array_equal(
+                    w >> 24, np.maximum(length[r] - fd, 0))
+        np.testing.assert_array_equal(e[fd, :, 0] & 1, flag[0] >> 5 & 1)
+        np.testing.assert_array_equal(
+            e[fd, :, 0] >> 1 & 3,
+            (length[1] > 0) * (1 + (length[2] > 0)))
+        np.testing.assert_array_equal(e[fd, :, 3], f0 & 0xFFFF)
+    assert (length[1] > 0).any()
+    assert 0 <= int(dt.bb.min()) and int(dt.bb.max()) < 32
+
+
+def test_long_alternatives_are_refused():
+    planes = np.zeros((2, 8, 128), np.int32)
+    planes[0, 0, 5] = 64 << 16
+    with pytest.raises(ValueError):
+        ttab.check_alternative_lengths(planes)
+    planes[0, 0, 5] = 63 << 16 | 63 << 24
+    ttab.check_alternative_lengths(planes)
+    e = ttab.decide_entries(torch.from_numpy(planes.reshape(2, -1)), 2)
+    assert int(e[1, 5, 1]) >> 24 == 62 and int(e[0, 5, 2]) >> 24 == 63
 
 
 def test_key_filter_holds_every_key(case):

@@ -4,11 +4,13 @@
 // hold each loop against the PyTorch plain version of the same stage, which
 // is the only check of the kernels' own arithmetic that runs without a card.
 //
-// The match and follow loops stage text tiles and lane-window tiles in
-// ordinary arrays, the way the kernels stage them in shared memory, with
-// the tile size a parameter so the tests can make tiles small.
+// Every loop stages its tiles (text, neighbourhood pairs, lane windows,
+// record tiles) in ordinary arrays, the way the kernels stage them in
+// shared memory, with the tile size a parameter so the tests can make
+// tiles small.
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libtm_host.so tm_host.cpp
+#include <algorithm>
 #include <vector>
 
 #include "tm_kernels.cuh"
@@ -28,10 +30,24 @@ void tm_match_host(const tmk::MatchArgs* a, int tile) {
 // The kernel's warp tile, in positions (tm_kernels.cuh MATCH_TILE).
 int tm_match_tile() { return tmk::MATCH_TILE; }
 
-void tm_decide_host(const tmk::DecideArgs* a, int rows) {
-  for (int32_t fd = 0; fd < rows; ++fd)
-    for (int64_t p = 0; p < a->N; ++p) tmk::decide_at(*a, p, fd);
+// Tiles of ``tile`` positions, each with its DECIDE_REACH of lookahead
+// staged first, as the kernel's blocks stage them in shared memory.
+void tm_decide_host(const tmk::DecideArgs* a, int tile) {
+  const int32_t rows = a->has_delete ? 2 : 1;
+  tmk::DecideCls cls_of[256];
+  for (int32_t i = 0; i < 256; ++i) cls_of[i] = tmk::decide_cls((uint32_t)a->bb[i]);
+  std::vector<tmk::DecideNb> win(static_cast<std::size_t>(tile) + tmk::DECIDE_REACH);
+  std::vector<tmk::DecideOwn> own(static_cast<std::size_t>(tile) * 2);
+  for (int64_t p0 = 0; p0 < a->N; p0 += tile) {
+    for (int32_t i = 0; i < (int32_t)win.size(); ++i)
+      win[i] = tmk::decide_stage(*a, cls_of, p0 + i, i < tile ? &own[2 * i] : nullptr);
+    for (int32_t i = 0; i < tile && p0 + i < a->N; ++i)
+      for (int32_t fd = 0; fd < rows; ++fd) tmk::decide_tile_at(*a, win.data() + i, p0 + i, fd, own[2 * i + fd]);
+  }
 }
+
+// The kernel's tile, in positions.
+int tm_decide_tile() { return tmk::DECIDE_TILE; }
 
 void tm_follow_host(const tmk::FollowArgs* a, int tw) {
   const int32_t rows = a->rows > 1 ? a->rows : 1;
@@ -48,11 +64,43 @@ void tm_follow_host(const tmk::FollowArgs* a, int tw) {
   }
 }
 
-void tm_compact_host(const tmk::CompactArgs* a) {
-  for (int32_t lane = 0; lane < a->L; ++lane) {
-    const int32_t last = tmk::compact_last(*a, lane);
-    for (int32_t j = tmk::compact_first(*a, lane); j <= last; ++j) tmk::compact_at(*a, lane, j);
+// Tiles of ``lane_tile`` lanes x ``rec_tile`` record rows turned through
+// an array, then chunks of ``zero_chunk`` output slots (a multiple of 32)
+// zeroed where no kept record maps, as the kernel's two kinds of block do.
+void tm_compact_host(const tmk::CompactArgs* a, int lane_tile, int rec_tile, int zero_chunk) {
+  std::vector<uint32_t> tile(static_cast<std::size_t>(rec_tile) * (lane_tile + 1));
+  std::vector<tmk::CompactLane> lanes(lane_tile);
+  for (int32_t lane0 = 0; lane0 < a->L; lane0 += lane_tile)
+    for (int32_t j0 = 0; j0 < a->T; j0 += rec_tile) {
+      bool live = false;
+      for (int32_t i = 0; i < lane_tile; ++i) {
+        lanes[i] = tmk::compact_lane(*a, lane0 + i);
+        live = live || tmk::compact_lane_in(lanes[i], j0, rec_tile);
+      }
+      if (!live) continue;
+      for (int32_t jj = 0; jj < rec_tile; ++jj)
+        for (int32_t i = 0; i < lane_tile; ++i)
+          if (tmk::compact_keeps(lanes[i], j0 + jj))
+            tile[static_cast<std::size_t>(jj) * (lane_tile + 1) + i] = tmk::compact_word(*a, lane0 + i, j0 + jj);
+      for (int32_t i = 0; i < lane_tile; ++i)
+        for (int32_t jj = 0; jj < rec_tile; ++jj)
+          if (tmk::compact_keeps(lanes[i], j0 + jj))
+            tmk::compact_put(*a, lanes[i], j0 + jj, tile[static_cast<std::size_t>(jj) * (lane_tile + 1) + i]);
+    }
+  std::vector<uint32_t> bits(zero_chunk / 32);
+  for (int64_t x0 = 0; x0 < a->out_len; x0 += zero_chunk) {
+    std::fill(bits.begin(), bits.end(), 0u);
+    for (int32_t l = 0; l < a->L; ++l) tmk::compact_mark(tmk::compact_lane(*a, l), x0, zero_chunk, bits.data());
+    for (int32_t i = 0; i < zero_chunk; i += 4) tmk::compact_zero4(*a, x0, bits.data(), i);
   }
+}
+
+// The kernel's tiles: lanes, and in *recs record rows and *zero output
+// slots of a zero-fill chunk.
+int tm_compact_tile(int* recs, int* zero) {
+  *recs = tmk::COMPACT_RECS;
+  *zero = tmk::COMPACT_ZERO;
+  return tmk::COMPACT_LANES;
 }
 
 }  // extern "C"

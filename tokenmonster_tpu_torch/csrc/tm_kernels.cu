@@ -23,10 +23,24 @@
 //         the lanes' remaining lengths are probed by the whole warp from
 //         one list, so one lane's long search does not idle the others.
 // decide  replaces tokenmonster_tpu/ops/pallas_decide.py::make_decide_kernel.
-//         One thread per (position, fd row).  Bound by about 20 scattered
-//         reads per thread into the match words, text and metadata planes,
-//         all within 127 positions of p, so neighbouring threads share
-//         cache lines; the metadata planes (2 x 4 B per token) sit in L2.
+//         A decision scores up to six branches: a first token (the match
+//         or one of its two alternatives) and the token matched after it,
+//         under M or Mb, up to 63 positions on, and the byte after that.
+//         One thread per (position, fd row) gathering all of that itself
+//         is bound by the gathers (about 16 scattered metadata reads a
+//         position, one cache line per cycle and SM), and what is left
+//         after that by the integer arithmetic of the scores.  So each
+//         term is summed where it is known.  The first token's share of a
+//         score and its flag bits come per token from a table built on
+//         the host (four words a token and fd row).  A block owns 512
+//         consecutive positions and both fd rows; once per position of its
+//         tile and the 128 after it, it gathers the two tokens' table
+//         entries (one 16-byte read each) and packs the share of the
+//         second token and of the byte after it, with the flag bits that
+//         meet the first token's, into an 8-byte pair in shared memory.
+//         Then each thread decides its positions: one 8-byte shared-memory
+//         read and a few operations a branch, and only the branches whose
+//         first token stands.
 // follow  replaces tokenmonster_tpu/ops/pallas_follow.py::make_follow_kernel.
 //         FOLLOW_LANES lanes per block.  The whole block copies each lane's
 //         window, w = ctl | tok << 10 of every fd row, into shared memory
@@ -38,10 +52,19 @@
 //         lanes that leave their tile stop, the block refills those tiles
 //         from where each stopped, and they walk on.
 // compact replaces tokenmonster_tpu/ops/pallas_stitch.py::make_compact_kernel.
-//         One block per lane, threads striding over the lane's kept
-//         records; writes are coalesced, reads stride by L words.  Kept
-//         ranges of different lanes map to disjoint slots whenever every
-//         junction synced; otherwise the output is discarded by the caller.
+//         Moves little (about 12 bytes per kept record) and is bound by
+//         latency and by how its reads fall: records lie lane-fastest, so a
+//         thread per record of one lane reads 4 bytes of every 32-byte
+//         sector it touches.  Blocks read tiles of 32 lanes x 64 record
+//         rows along the lane axis (a warp reads 128 consecutive bytes),
+//         turn them through shared memory, and write each lane's run of
+//         consecutive slots; tiles outside every lane's kept range end
+//         after reading the ranges.  Further blocks of the same launch zero
+//         the slots no kept record maps to (a bitmap of the lanes' slot
+//         ranges per 8,192 slots), so the caller allocates the output
+//         without clearing it.  Kept ranges of different lanes map to
+//         disjoint slots whenever every junction synced; otherwise the
+//         output is discarded by the caller.
 #include <cuda_runtime.h>
 
 #include <initializer_list>
@@ -60,6 +83,10 @@ constexpr uint32_t FULL = 0xFFFFFFFFu;
 constexpr int FOLLOW_THREADS = 256;
 constexpr int FOLLOW_LANES = 4;   // most lanes per block
 constexpr int SMEM_SLACK = 1024;  // bytes left for static shared memory
+using tmk::DECIDE_PER;
+using tmk::DECIDE_THREADS;
+using tmk::DECIDE_TILE;
+constexpr int COMPACT_THREADS = 256;
 
 // Shared-memory layout of the match kernel, in u32 words.
 struct MatchLayout {
@@ -180,9 +207,37 @@ __global__ void __launch_bounds__(MATCH_THREADS, 1) match_kernel(tmk::MatchArgs 
   }
 }
 
-__global__ void decide_kernel(tmk::DecideArgs a) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < a.N) tmk::decide_at(a, p, (int32_t)blockIdx.y);
+// A block decides DECIDE_TILE consecutive positions, every fd row: its
+// threads first gather what the tile and its lookahead offer to their
+// neighbours (tmk::decide_stage) into shared memory, each keeping what its
+// own positions need in registers; then each thread decides its positions
+// from shared memory alone.  Thread t takes positions t, t + blockDim, ...
+// of the tile in both phases.
+__global__ void __launch_bounds__(DECIDE_THREADS) decide_kernel(tmk::DecideArgs a) {
+  __shared__ tmk::DecideNb win[DECIDE_TILE + tmk::DECIDE_REACH];
+  __shared__ tmk::DecideCls cls_of[256];
+  const int32_t t = threadIdx.x;
+  for (int32_t i = t; i < 256; i += DECIDE_THREADS) cls_of[i] = tmk::decide_cls((uint32_t)__ldg(a.bb + i));
+  __syncthreads();
+  const int64_t p0 = (int64_t)blockIdx.x * DECIDE_TILE;
+  tmk::DecideOwn own[DECIDE_PER][2];
+#pragma unroll
+  for (int32_t k = 0; k < DECIDE_PER; ++k) {
+    const int32_t i = t + k * DECIDE_THREADS;
+    win[i] = tmk::decide_stage(a, cls_of, p0 + i, own[k]);
+  }
+  for (int32_t i = DECIDE_TILE + t; i < DECIDE_TILE + tmk::DECIDE_REACH; i += DECIDE_THREADS)
+    win[i] = tmk::decide_stage(a, cls_of, p0 + i, nullptr);
+  __syncthreads();
+  const int32_t rows = a.has_delete ? 2 : 1;
+#pragma unroll
+  for (int32_t k = 0; k < DECIDE_PER; ++k) {
+    const int32_t i = t + k * DECIDE_THREADS;
+    if (p0 + i >= a.N) continue;
+#pragma unroll
+    for (int32_t fd = 0; fd < 2; ++fd)
+      if (fd < rows) tmk::decide_tile_at(a, win + i, p0 + i, fd, own[k][fd]);
+  }
 }
 
 // Window positions [k0, k0 + tw) of every fd row of the lane starting at
@@ -256,11 +311,60 @@ __global__ void __launch_bounds__(FOLLOW_THREADS) follow_kernel(tmk::FollowArgs 
     tmk::follow_end(a, lane0 + i, lanes[i], me, blockDim.x);
 }
 
-__global__ void compact_kernel(tmk::CompactArgs a) {
-  const int32_t lane = blockIdx.x;
-  const int32_t last = tmk::compact_last(a, lane);
-  for (int32_t j = tmk::compact_first(a, lane) + threadIdx.x; j <= last; j += blockDim.x)
-    tmk::compact_at(a, lane, j);
+// Blocks [0, n_tiles) each turn one tile of COMPACT_LANES lanes x
+// COMPACT_RECS record rows: warps read rows (consecutive lanes, side by side
+// in memory), the tile's columns go out as runs of consecutive slots.  A
+// tile no lane keeps a record of is left after reading the lanes' ranges.
+// Blocks from n_tiles on each zero the slots of their COMPACT_ZERO that no
+// kept record maps to.
+__global__ void __launch_bounds__(COMPACT_THREADS) compact_kernel(tmk::CompactArgs a,
+                                                                   int32_t n_tiles,
+                                                                   int32_t row_tiles) {
+  using tmk::COMPACT_LANES;
+  using tmk::COMPACT_RECS;
+  using tmk::COMPACT_ZERO;
+  __shared__ uint32_t tile[COMPACT_RECS][COMPACT_LANES + 1];  // odd stride: no bank conflicts
+  __shared__ tmk::CompactLane lanes[COMPACT_LANES];
+  __shared__ uint32_t bits[COMPACT_ZERO / 32];
+  const int32_t t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  if ((int32_t)blockIdx.x >= n_tiles) {
+    const int64_t x0 = (int64_t)(blockIdx.x - n_tiles) * COMPACT_ZERO;
+    for (int32_t i = t; i < COMPACT_ZERO / 32; i += COMPACT_THREADS) bits[i] = 0u;
+    __syncthreads();
+    for (int32_t l = t; l < a.L; l += COMPACT_THREADS)
+      tmk::compact_mark(tmk::compact_lane(a, l), x0, COMPACT_ZERO, bits);
+    __syncthreads();
+    for (int32_t i = 4 * t; i < COMPACT_ZERO; i += 4 * COMPACT_THREADS)
+      tmk::compact_zero4(a, x0, bits, i);
+    return;
+  }
+  const int32_t lane0 = ((int32_t)blockIdx.x / row_tiles) * COMPACT_LANES;
+  const int32_t j0 = ((int32_t)blockIdx.x % row_tiles) * COMPACT_RECS;
+  bool live = false;
+  if (t < COMPACT_LANES) {
+    lanes[t] = tmk::compact_lane(a, lane0 + t);
+    live = tmk::compact_lane_in(lanes[t], j0, COMPACT_RECS);
+  }
+  if (!__syncthreads_or(live)) return;
+  const tmk::CompactLane mine = lanes[lane];
+  for (int32_t jj = warp; jj < COMPACT_RECS; jj += COMPACT_THREADS / 32)
+    if (tmk::compact_keeps(mine, j0 + jj)) tile[jj][lane] = tmk::compact_word(a, lane0 + lane, j0 + jj);
+  __syncthreads();
+  for (int32_t l = warp; l < COMPACT_LANES; l += COMPACT_THREADS / 32) {
+    const tmk::CompactLane c = lanes[l];
+    for (int32_t jj = lane; jj < COMPACT_RECS; jj += 32)
+      if (tmk::compact_keeps(c, j0 + jj)) tmk::compact_put(a, c, j0 + jj, tile[jj][l]);
+  }
+}
+
+// Takes no time on the card beyond its launch unless asked to spin: the
+// yardstick of what a launch costs, and a way to hold a stream while the
+// host queues work behind it.
+__global__ void spin_kernel(long long cycles) {
+  if (cycles <= 0) return;
+  const long long t0 = clock64();
+  while (clock64() - t0 < cycles) {
+  }
 }
 
 int blocks_for(int64_t n, int threads) { return (int)((n + threads - 1) / threads); }
@@ -356,13 +460,30 @@ int tm_match_tile(int* block) {
   return MATCH_TILE;
 }
 
-int tm_decide_launch(const tmk::DecideArgs* a, int rows, void* stream) {
-  const int threads = 256;
-  if (a->N > 0) {
-    dim3 grid(blocks_for(a->N, threads), rows);
-    decide_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(*a);
-  }
+int tm_decide_launch(const tmk::DecideArgs* a, void* stream) {
+  if (a->N > 0)
+    decide_kernel<<<blocks_for(a->N, DECIDE_TILE), DECIDE_THREADS, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// The decide kernel's geometry: positions per block, and in *smem the
+// bytes of shared memory a block holds for them and their lookahead.
+int tm_decide_tile(int* smem) {
+  *smem = (int)sizeof(tmk::DecideNb) * (DECIDE_TILE + tmk::DECIDE_REACH) + 256 * (int)sizeof(tmk::DecideCls);
+  return DECIDE_TILE;
+}
+
+// Blocks of the decide kernel an SM holds at once (0: the query failed),
+// and in *regs the registers of a thread.
+int tm_decide_occupancy(int* regs) {
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  if (cudaFuncGetAttributes(&attr, (const void*)decide_kernel) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, (const void*)decide_kernel, DECIDE_THREADS,
+                                                    0) != cudaSuccess)
+    return 0;
+  *regs = attr.numRegs;
+  return blocks;
 }
 
 int tm_follow_launch(const tmk::FollowArgs* a, void* stream) {
@@ -387,7 +508,21 @@ int tm_follow_tile(const tmk::FollowArgs* a) {
 }
 
 int tm_compact_launch(const tmk::CompactArgs* a, void* stream) {
-  if (a->L > 0) compact_kernel<<<a->L, 256, 0, (cudaStream_t)stream>>>(*a);
+  const int64_t lane_tiles = (a->L + tmk::COMPACT_LANES - 1) / tmk::COMPACT_LANES;
+  const int64_t row_tiles = (a->T + tmk::COMPACT_RECS - 1) / tmk::COMPACT_RECS;
+  const int64_t n_tiles = a->L > 0 && a->T > 0 ? lane_tiles * row_tiles : 0;
+  const int64_t zero_blocks = (a->out_len + tmk::COMPACT_ZERO - 1) / tmk::COMPACT_ZERO;
+  if (n_tiles + zero_blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
+  if (n_tiles + zero_blocks > 0)
+    compact_kernel<<<(unsigned)(n_tiles + zero_blocks), COMPACT_THREADS, 0, (cudaStream_t)stream>>>(
+        *a, (int32_t)n_tiles, (int32_t)(row_tiles > 0 ? row_tiles : 1));
+  return (int)cudaGetLastError();
+}
+
+// One thread that spins for ``cycles`` of the card's clock (0: returns at
+// once).
+int tm_spin_launch(long long cycles, void* stream) {
+  spin_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(cycles);
   return (int)cudaGetLastError();
 }
 

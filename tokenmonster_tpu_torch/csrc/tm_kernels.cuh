@@ -101,12 +101,13 @@ struct DecideArgs {
   const uint32_t* m;
   const uint32_t* mb;           // == m when the vocabulary has no delete
   const uint8_t* text;
-  const int32_t* meta;          // (2, R*128) planes, see build_meta_planes
-  const int32_t* bb;            // (256,) begin-byte class
+  const int32_t* entries;       // (rows, n_entries, 4): ops/tables.py
+                                // decide_entries
+  const int32_t* bb;            // (256,) begin-byte class, each below 256
   uint32_t* ctl;                // (rows, N)
   uint32_t* tok;
   int64_t N;
-  int64_t meta_stride;          // R*128
+  int64_t n_entries;            // R*128
   int32_t n;
   int32_t has_delete;
   int32_t has_unk;
@@ -138,7 +139,7 @@ struct CompactArgs {
   const int32_t* s;             // (L,) first kept record
   const int32_t* e;             // (L,) last kept record (inclusive)
   const int32_t* q;             // (L,) output slot of record 0
-  uint32_t* out;                // zeroed by the caller
+  uint32_t* out;                // [out_len]: the kernel writes every word
   int64_t out_len;
   int32_t T;
   int32_t L;
@@ -472,95 +473,195 @@ TM_HD int32_t match_win_words(int32_t tile, int32_t max_len) {
 // Reads past N see zero words and zero text bytes, as the JAX kernel's
 // zero margin rows do: a zero byte still maps through begin-byte and a
 // zero match word still fetches the metadata of index 0.
+//
+// A decision takes up to three branches: its first token is the match or
+// one of the match's two alternatives, its second the token matched right
+// after the first, under M or (the forward-delete branches) under Mb.  A
+// branch's score is
+//   bl + (f >> 7) + (sf >> 7) + max0(fnw - 1) + max0(snw - 1) + (sf >> 2 & 1)
+//      + (nb >> 2 & 1) + 100 (fnw + snw + (nb >> 3)) - deductions,
+// bl the two lengths, f/fnw and sf/snw the flags and word counts of the
+// first and second token, nb the begin-byte class of the byte after the
+// second.  Three kinds of term, each summed where it is known:
+//   - the first token's, once per token and fd row on the host: the
+//     decide entries of ops/tables.py, four words a token
+//   - the second token's and the next byte's, which depend on the text
+//     position alone, once per position: decide_stage packs them into a
+//     pair of words, held in shared memory for a tile and its DECIDE_REACH
+//     positions of lookahead
+//   - the deductions that join the two, per branch, in decide_tile_at,
+//     from flag bits that sit at the same bit of an entry and of a pair.
+// Token lengths are at most 63 (the match word's 6 bits), so a second
+// token lies within 63 positions and the byte after it within 126: the
+// clamp of every offset to 127 never moves a read a decision uses.
 constexpr int32_t NEG = -1000000;
+constexpr int32_t DECIDE_REACH = 128;  // every offset is clamped by clip127
+constexpr int32_t DECIDE_THREADS = 256;
+constexpr int32_t DECIDE_PER = 2;      // positions per thread
+constexpr int32_t DECIDE_TILE = DECIDE_THREADS * DECIDE_PER;
 
-struct DecideCtx {
-  const DecideArgs* a;
-  int64_t p;
-  TM_HD uint32_t m_at(int32_t delta) const {
-    return word_at(a->m, a->N, p + clip127(delta));
-  }
-  TM_HD uint32_t mb_at(int32_t delta) const {
-    return word_at(a->mb, a->N, p + clip127(delta));
-  }
-  TM_HD int32_t bb_at(int32_t delta) const {
-    return a->bb[byte_at(a->text, a->N, p + clip127(delta))];
-  }
-  TM_HD int32_t meta0(uint32_t w) const { return a->meta[w >> 6]; }
+// Entry words of a token as the first of branch r (ops/tables.py
+// decide_entries), f its flag and fnw its word count less fd:
+//   bit 0     (word 0) the match's flag bit 5: no branch before class 12
+//   bits 1-2  (word 0) how many alternatives stand: 0, 1, 2
+//   bit 7     f & 1         bit 8  f >> 3 & 1
+//   bits 9-23 (f >> 7) + max0(fnw - 1) + 100 fnw + 100
+//   bits 24-31 (words 1, 2) the alternative's length less fd
+// and word 3 the token's flag and word count, for decide_stage.
+constexpr int32_t E_WORDS = 4;
+
+// What decisions read of the tokens matched at one text position.  With
+// sf/snw the flag and word count of M's token, nb the class of the byte
+// after it, and the same of Mb's token (sfb, snwb, nbb; the byte after it
+// lies lil_off earlier, the virtual space not being in the text):
+//   a: bits 0-5  len(M)      bit 6  M != 0
+//      bit 7  sf >> 1 & 1    bit 8  sf >> 4 & 1
+//      bit 9  the forward-delete branch is wanted: sf >> 1 & 1, snw == 0,
+//             nb == 1 and len(Mb) > len(M) + 1
+//      bit 10 nb == 12
+//      bits 11-25 len(M) + (sf >> 7) + max0(snw - 1) + (sf >> 2 & 1)
+//             + 100 snw + (nb >> 2 & 1) + 100 (nb >> 3) - 3 (sf & nb & 1) + 3
+//   b: bits 0-5  len(Mb)     bit 8  sfb >> 4 & 1     bit 10 nbb == 12
+//      bits 11-25 len(Mb) + (sfb >> 7) + max0(snwb - 1) + 100 snwb
+//             + (nbb >> 2 & 1) + 100 (nbb >> 3) - 3 (sfb & nbb & 1) + 3
+struct alignas(8) DecideNb {
+  uint32_t a, b;
+};
+
+// What a decision reads of its own token: the match word and the first
+// three entry words of its fd row.
+struct DecideOwn {
+  uint32_t mf, w[3];
 };
 
 TM_HD int32_t max0(int32_t x) { return x > 0 ? x : 0; }
 
-TM_HD void decide_at(const DecideArgs& a, int64_t p, int32_t fd) {
-  const DecideCtx c{&a, p};
-  const uint32_t mf = fd ? a.mb[p] : a.m[p];
+// The begin-byte table as class words:
+//   (nb >> 2 & 1) + 100 (nb >> 3) | (nb & 1) << 12 | (nb == 1) << 13 |
+//   (nb == 12) << 14
+typedef uint16_t DecideCls;
+
+TM_HD DecideCls decide_cls(uint32_t nb) {
+  return (DecideCls)((((nb >> 2) & 1u) + 100u * (nb >> 3)) | ((nb & 1u) << 12) |
+                     ((nb == 1u ? 1u : 0u) << 13) | ((nb == 12u ? 1u : 0u) << 14));
+}
+
+// Bits 10-25 of a pair word: a token of length len, flag f and word count
+// nw as the second of a branch, before a byte of class word c; ``plain``
+// adds the flag's bit 2, which the forward-delete branches leave out.
+TM_HD uint32_t decide_second(uint32_t len, uint32_t f, uint32_t nw, uint32_t c, bool plain) {
+  const uint32_t part = len + (f >> 7) + (uint32_t)max0((int32_t)nw - 1) + 100u * nw +
+                        (plain ? (f >> 2) & 1u : 0u) + (c & 0xFFFu) + 3u - 3u * (f & (c >> 12) & 1u);
+  return (((c >> 14) & 1u) << 10) | (part << 11);
+}
+
+// The entry of dictionary index idx in fd row fd: one 16-byte read.
+struct alignas(16) DecideEntry {
+  uint32_t w[E_WORDS];
+};
+
+TM_HD DecideEntry decide_entry(const DecideArgs& a, int32_t fd, uint32_t idx) {
+  const int32_t* e = a.entries + ((int64_t)fd * a.n_entries + idx) * E_WORDS;
+#if defined(__CUDA_ARCH__)
+  const int4 v = __ldg((const int4*)e);
+  return DecideEntry{{(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z, (uint32_t)v.w}};
+#else
+  return DecideEntry{{(uint32_t)e[0], (uint32_t)e[1], (uint32_t)e[2], (uint32_t)e[3]}};
+#endif
+}
+
+// The class word of the text byte at q (zero past N).  ``cls_of`` is
+// decide_cls of the begin-byte table: in shared memory in the kernel.
+TM_HD uint32_t decide_cls_at(const DecideArgs& a, const DecideCls* cls_of, int64_t q) {
+  return cls_of[q < a.N ? (uint32_t)TM_LDG(a.text + q) : 0u];
+}
+
+// The pair of text position q (match words zero past N) and in own[fd],
+// unless own is null, what the decisions at q itself read.
+TM_HD DecideNb decide_stage(const DecideArgs& a, const DecideCls* cls_of, int64_t q, DecideOwn* own) {
+  const bool in = q < a.N;
+  const uint32_t m = in ? TM_LDG(a.m + q) : 0u;
+  const uint32_t mb = a.has_delete && in ? TM_LDG(a.mb + q) : 0u;
+  const DecideEntry em = decide_entry(a, 0, m >> 6);
+  const uint32_t len = m & 63u, sf = em.w[3] & 0xFFu, snw = (em.w[3] >> 8) & 0xFFu;
+  const uint32_t c = decide_cls_at(a, cls_of, q + len);
+  DecideNb w;
+  w.a = len | (m ? 64u : 0u) | (((sf >> 1) & 1u) << 7) | (((sf >> 4) & 1u) << 8) |
+        decide_second(len, sf, snw, c, true);
+  w.b = 0u;
+  if (own) own[0] = DecideOwn{m, {em.w[0], em.w[1], em.w[2]}};
+  if (a.has_delete) {
+    const DecideEntry eb = decide_entry(a, 1, mb >> 6);
+    const uint32_t lenb = mb & 63u, sfb = eb.w[3] & 0xFFu, snwb = (eb.w[3] >> 8) & 0xFFu;
+    const uint32_t cb = decide_cls_at(a, cls_of, q + max0((int32_t)lenb - a.lil_off));
+    w.b = lenb | (((sfb >> 4) & 1u) << 8) | decide_second(lenb, sfb, snwb, cb, false);
+    const bool want = ((sf >> 1) & 1u) && snw == 0u && ((c >> 13) & 1u) && lenb > len + 1u;
+    w.a |= (want ? 1u : 0u) << 9;
+    if (own) own[1] = DecideOwn{mb, {eb.w[0], eb.w[1], eb.w[2]}};
+  }
+  return w;
+}
+
+// The decision at (fd, p): ``nb[k]`` is the pair of position p + k, for k
+// in [0, DECIDE_REACH), and ``o`` what decide_stage gave for (p, fd).
+TM_HD void decide_tile_at(const DecideArgs& a, const DecideNb* nb, int64_t p, int32_t fd,
+                          const DecideOwn& o) {
+  const uint32_t mf = o.mf;
   const int32_t cur_idx = (int32_t)(mf >> 6);
   const int32_t cur_len = (int32_t)(mf & 63u) - fd * a.lil_off;
   const bool found = mf != 0;
-  const int32_t F0 = a.meta[cur_idx];
-  const int32_t F1 = a.meta[a.meta_stride + cur_idx];
-  const int32_t of = F0 & 0xFF, onw = (F0 >> 8) & 0xFF;
-  const int32_t olen1 = (F0 >> 16) & 0xFF, olen2 = (F0 >> 24) & 0xFF;
-  const int32_t af1 = F1 & 0xFF, anw1 = (F1 >> 8) & 0xFF;
-  const int32_t af2 = (F1 >> 16) & 0xFF, anw2 = (F1 >> 24) & 0xFF;
+  // the byte after the match is the one after the token matched here
+  const uint32_t here = fd ? nb[0].b : nb[0].a;
+  const bool do_eval = found && (p + cur_len < a.n) && !((o.w[0] & 1u) && ((here >> 10) & 1u));
+  const int32_t n_first = do_eval ? 1 + (int32_t)((o.w[0] >> 1) & 3u) : 0;
+  const int32_t first_len[3] = {cur_len, (int32_t)(o.w[1] >> 24), (int32_t)(o.w[2] >> 24)};
 
-  const bool do_eval = found && (p + cur_len < a.n) &&
-                       (((of & 32) == 0) || c.bb_at(cur_len) != 12);
-  const bool valid_first[3] = {do_eval, do_eval && olen1 > 0,
-                               do_eval && olen1 > 0 && olen2 > 0};
-  const int32_t first_len[3] = {cur_len, olen1 - fd, olen2 - fd};
-  const int32_t f_first[3] = {of, af1, af2};
-  const int32_t fnw[3] = {onw - fd, anw1 - fd, anw2 - fd};
-
-  int32_t scores[6];
-  int32_t n_scores = a.has_delete ? 6 : 3;
+  // first hit of the largest score in the order s1 > s2 > s3 > s1b > s2b >
+  // s3b: the plain branches first, each taking over only when larger
+  int32_t mx = NEG, w6 = 0;
+  int32_t scores_b[3] = {NEG, NEG, NEG};
+  TM_UNROLL
   for (int r = 0; r < 3; ++r) {
-    const int32_t delta3 = valid_first[r] ? first_len[r] : cur_len;
-    const uint32_t m3 = c.m_at(delta3);
-    const int32_t s_len = (int32_t)(m3 & 63u);
-    const bool valid_nb = valid_first[r] && m3 != 0;
-    const int32_t sF0 = c.meta0(m3);
-    const int32_t sf = sF0 & 0xFF, snw = (sF0 >> 8) & 0xFF;
-    const int32_t nb_nb = c.bb_at(delta3 + s_len);
+    // a branch whose first token does not stand scores NEG both ways
+    if (r >= n_first) break;
+    const uint32_t w = o.w[r];
+    const int32_t delta3 = first_len[r];
+    const DecideNb second = nb[clip127(delta3)];
+    if (!((second.a >> 6) & 1u)) continue;  // no second token
+    // the first token's terms, less the 100 and the 3 the fields carry
+    const int32_t first = delta3 + (int32_t)((w >> 9) & 0x7FFFu) - 103;
     {
-      const int32_t bl = first_len[r] + s_len;
-      const int32_t base = bl + (f_first[r] >> 7) + (sf >> 7) + max0(fnw[r] - 1) +
-                           max0(snw - 1) + ((sf >> 2) & 1) + ((nb_nb >> 2) & 1) +
-                           (fnw[r] + snw + (nb_nb >> 3)) * 100;
-      int32_t ded = (f_first[r] & 1 & (sf >> 1)) * 103 +
-                    ((f_first[r] >> 3) & 1 & (sf >> 4)) * 100 + (sf & 1 & nb_nb) * 3;
-      if (r > 0) ded += (bl < cur_len ? 100 : 0) + (bl == cur_len ? 10000 : 0);
-      scores[r] = valid_nb ? base - ded : NEG;
+      const uint32_t both = w & second.a;  // bit 7: f & sf >> 1, bit 8: f >> 3 & sf >> 4
+      const int32_t bl = delta3 + (int32_t)(second.a & 63u);
+      int32_t score = first + (int32_t)((second.a >> 11) & 0x7FFFu) - 103 * (int32_t)((both >> 7) & 1u) -
+                      100 * (int32_t)((both >> 8) & 1u);
+      if (r > 0) score -= (bl < cur_len ? 100 : 0) + (bl == cur_len ? 10000 : 0);
+      if (score > mx) {
+        mx = score;
+        w6 = r;
+      }
     }
-    if (a.has_delete) {
+    if ((second.a >> 9) & 1u) {
       // forward-delete branch: the second token re-probed with the
       // virtual space prefix
-      const uint32_t mb3 = c.mb_at(delta3);
-      const int32_t sbF0 = c.meta0(mb3);
-      const int32_t secb_lenf = (int32_t)(mb3 & 63u);
-      const int32_t secb_len = secb_lenf - a.lil_off;
-      const int32_t sfb = sbF0 & 0xFF, snwb = (sbF0 >> 8) & 0xFF;
-      const bool want_b = valid_nb && (sf & 2) != 0 && nb_nb == 1 && snw == 0 &&
-                          secb_lenf > s_len + 1;
-      const int32_t nb_b = c.bb_at(delta3 + secb_len);
-      const int32_t bl = first_len[r] + secb_len;
-      const int32_t base = bl + (f_first[r] >> 7) + (sfb >> 7) + max0(fnw[r] - 1) +
-                           max0(snwb - 1) + ((nb_b >> 2) & 1) +
-                           (fnw[r] + snwb + (nb_b >> 3)) * 100;
-      int32_t ded = (f_first[r] & 1) * 103 + ((f_first[r] >> 3) & 1 & (sfb >> 4)) * 100 +
-                    (sfb & 1 & nb_b) * 3 + 1;
-      if (r > 0) ded += (bl < cur_len ? 100 : 0) + (bl == cur_len ? 10000 : 0);
-      scores[3 + r] = want_b ? base - ded : NEG;
+      const int32_t bl = delta3 + (int32_t)(second.b & 63u) - a.lil_off;
+      int32_t score = first - a.lil_off - 1 + (int32_t)((second.b >> 11) & 0x7FFFu) -
+                      103 * (int32_t)((w >> 7) & 1u) - 100 * (int32_t)(((w & second.b) >> 8) & 1u);
+      if (r > 0) score -= (bl < cur_len ? 100 : 0) + (bl == cur_len ? 10000 : 0);
+      scores_b[r] = score;
     }
   }
-  int32_t mx = scores[0];
-  for (int r = 1; r < n_scores; ++r) mx = scores[r] > mx ? scores[r] : mx;
-  int32_t w6 = 0;  // first hit: s1 > s2 > s3 > s1b > s2b > s3b
-  while (scores[w6] != mx) ++w6;
+  TM_UNROLL
+  for (int r = 0; r < 3; ++r)
+    if (scores_b[r] > mx) {
+      mx = scores_b[r];
+      w6 = 3 + r;
+    }
   const bool any_branch = mx != NEG;
-  const int32_t w3 = w6 % 3;
+  const int32_t w3 = w6 >= 3 ? w6 - 3 : w6;
   const bool is_b = any_branch && w6 >= 3;
-  const int32_t new_pos_rel = found ? (any_branch ? first_len[w3] : cur_len) : 1;
+  const int32_t adv = w3 == 0 ? first_len[0] : (w3 == 1 ? first_len[1] : first_len[2]);
+  const int32_t new_pos_rel = found ? (any_branch ? adv : cur_len) : 1;
   const bool miss = !found && p < a.n;
   const bool has_tok = found || (miss && a.has_unk);
   // an alternative branch may advance 0 bytes: at fd = 1 one of length 1
@@ -665,22 +766,87 @@ TM_HD void follow_end(const FollowArgs& a, int32_t lane, const FollowLane& s,
 }
 
 // -------------------------------------------------------------- compact
-// One kept record j of lane l to its global slot q_l + j, with the delete
-// marker (record bit 2) folded into bit 22 of the token word
-// (ops/pallas_stitch.py::make_compact_kernel).
-TM_HD void compact_at(const CompactArgs& a, int32_t lane, int32_t j) {
-  const int64_t slot = (int64_t)a.q[lane] + j;
-  if (slot < 0 || slot >= a.out_len) return;
+// The kept records [s_l, e_l] of lane l to the dense slots q_l + j, with
+// the delete marker (record bit 2) folded into bit 22 of the token word,
+// and zero in every slot no kept record maps to
+// (ops/pallas_stitch.py::make_compact_kernel writes into a zeroed buffer).
+//
+// The kernel reads a tile of COMPACT_LANES lanes x COMPACT_RECS record rows
+// along the lane axis, the way (T, L) arrays lie in memory, turns it
+// through shared memory and writes each lane's run of consecutive slots;
+// blocks of a second kind each own COMPACT_ZERO output slots, mark in a
+// bitmap the slots some lane's kept range maps to, and zero the others.
+// The two kinds write disjoint slots, so neither waits for the other.
+constexpr int32_t COMPACT_LANES = 32;
+constexpr int32_t COMPACT_RECS = 64;
+constexpr int32_t COMPACT_ZERO = 8192;  // a multiple of 32
+
+// A lane's kept records [s, e], clamped to the grid's rows (s > e: none),
+// and the output slot q of its record 0.
+struct CompactLane {
+  int32_t s, e, q;
+};
+
+TM_HD CompactLane compact_lane(const CompactArgs& a, int32_t lane) {
+  if (lane >= a.L) return CompactLane{1, 0, 0};
+  const int32_t s = TM_LDG(a.s + lane), e = TM_LDG(a.e + lane);
+  return CompactLane{s < 0 ? 0 : s, e < a.T - 1 ? e : a.T - 1, TM_LDG(a.q + lane)};
+}
+
+// Whether the lane keeps a record among rows [j0, j0 + nj).
+TM_HD bool compact_lane_in(const CompactLane& c, int32_t j0, int32_t nj) {
+  return c.s <= c.e && c.s < j0 + nj && c.e >= j0;
+}
+
+TM_HD bool compact_keeps(const CompactLane& c, int32_t j) { return c.s <= j && j <= c.e; }
+
+// The output word of record j of a lane.
+TM_HD uint32_t compact_word(const CompactArgs& a, int32_t lane, int32_t j) {
   const int64_t at = (int64_t)j * a.L + lane;
-  a.out[slot] = a.toks[at] | (((a.recs[at] >> 2) & 1u) << 22);
+  return TM_LDG(a.toks + at) | (((TM_LDG(a.recs + at) >> 2) & 1u) << 22);
 }
 
-TM_HD int32_t compact_first(const CompactArgs& a, int32_t lane) {
-  return a.s[lane] < 0 ? 0 : a.s[lane];
+// Word w of kept record j to its slot, dropped outside [0, out_len).
+TM_HD void compact_put(const CompactArgs& a, const CompactLane& c, int32_t j, uint32_t w) {
+  const int64_t slot = (int64_t)c.q + j;
+  if (slot >= 0 && slot < a.out_len) a.out[slot] = w;
 }
 
-TM_HD int32_t compact_last(const CompactArgs& a, int32_t lane) {
-  return a.e[lane] < a.T - 1 ? a.e[lane] : a.T - 1;
+#if defined(__CUDA_ARCH__)
+#define TM_OR(p, v) atomicOr((p), (v))
+#else
+#define TM_OR(p, v) (*(p) |= (v))
+#endif
+
+// Mark in ``bits`` (bit i: slot x0 + i, for i in [0, n_slots)) the slots
+// the lane's kept records map to.
+TM_HD void compact_mark(const CompactLane& c, int64_t x0, int32_t n_slots, uint32_t* bits) {
+  if (c.s > c.e) return;
+  int64_t lo = (int64_t)c.q + c.s - x0, hi = (int64_t)c.q + c.e - x0;
+  if (lo < 0) lo = 0;
+  if (hi > n_slots - 1) hi = n_slots - 1;
+  if (lo > hi) return;
+  for (int64_t w = lo >> 5; w <= hi >> 5; ++w) {
+    uint32_t mask = 0xFFFFFFFFu;
+    if (w == lo >> 5) mask &= 0xFFFFFFFFu << (lo & 31);
+    if (w == hi >> 5) mask &= 0xFFFFFFFFu >> (31 - (hi & 31));
+    TM_OR(bits + w, mask);
+  }
+}
+
+// Zero the unmarked ones of slots x0 + i .. x0 + i + 3 (i a multiple of
+// 4) below out_len: one 16-byte store where none of the four is marked.
+TM_HD void compact_zero4(const CompactArgs& a, int64_t x0, const uint32_t* bits, int32_t i) {
+  const int64_t x = x0 + i;
+  const uint32_t marked = (bits[i >> 5] >> (i & 31)) & 0xFu;
+#if defined(__CUDA_ARCH__)
+  if (!marked && x + 3 < a.out_len && ((uintptr_t)(a.out + x) & 15u) == 0) {
+    *(uint4*)(a.out + x) = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+#endif
+  for (int32_t k = 0; k < 4; ++k)
+    if (!((marked >> k) & 1u) && x + k < a.out_len) a.out[x + k] = 0u;
 }
 
 }  // namespace tmk

@@ -46,9 +46,9 @@ class MatchArgs(ctypes.Structure):
 
 
 class DecideArgs(ctypes.Structure):
-    _fields_ = [("m", _P), ("mb", _P), ("text", _P), ("meta", _P),
+    _fields_ = [("m", _P), ("mb", _P), ("text", _P), ("entries", _P),
                 ("bb", _P), ("ctl", _P), ("tok", _P), ("N", _I64),
-                ("meta_stride", _I64), ("n", _I32), ("has_delete", _I32),
+                ("n_entries", _I64), ("n", _I32), ("has_delete", _I32),
                 ("has_unk", _I32), ("unk_token", _I32), ("lil_off", _I32),
                 ("pad_", _I32)]
 
@@ -130,17 +130,22 @@ _lock = threading.Lock()
 def load_library():
     """The kernel library, built on first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
-            for name, struct in (("match", MatchArgs), ("follow", FollowArgs),
+            for name, struct in (("match", MatchArgs), ("decide", DecideArgs),
+                                 ("follow", FollowArgs),
                                  ("compact", CompactArgs)):
                 fn = getattr(lib, f"tm_{name}_launch")
                 fn.argtypes = [ctypes.POINTER(struct), _P]
                 fn.restype = ctypes.c_int
-            lib.tm_decide_launch.argtypes = [ctypes.POINTER(DecideArgs),
-                                             ctypes.c_int, _P]
-            lib.tm_decide_launch.restype = ctypes.c_int
+            lib.tm_spin_launch.argtypes = [ctypes.c_longlong, _P]
+            lib.tm_spin_launch.restype = ctypes.c_int
+            for name in ("tm_decide_tile", "tm_decide_occupancy"):
+                getattr(lib, name).argtypes = [ctypes.POINTER(ctypes.c_int)]
+                getattr(lib, name).restype = ctypes.c_int
             lib.tm_match_smem.argtypes = [ctypes.POINTER(MatchArgs),
                                           ctypes.POINTER(ctypes.c_int)]
             lib.tm_match_smem.restype = ctypes.c_int
@@ -154,19 +159,35 @@ def load_library():
     return _lib
 
 
-def launch(name: str, args: ctypes.Structure, device: torch.device,
-           *extra) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream; raises if the
-    launch was refused.  Counts the launch."""
+def _launch(name: str, arg, device: torch.device) -> None:
     lib = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, f"tm_{name}_launch")(ctypes.byref(args), *extra,
-                                                 stream)
+    fn = getattr(lib, f"tm_{name}_launch")
+    if device.index is None or device.index == torch.cuda.current_device():
+        # already the current device: no switch, which costs the host
+        # more than the rest of a launch
+        code = fn(arg, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(arg, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         msg = lib.tm_error_string(code).decode(errors="replace")
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+
+
+def launch(name: str, args: ctypes.Structure, device: torch.device) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream; raises if the
+    launch was refused.  Counts the launch."""
+    _launch(name, ctypes.byref(args), device)
     launches[name] += 1
+
+
+def spin(device: torch.device, cycles: int = 0) -> None:
+    """Launch, the way ``launch`` launches a kernel, one thread that spins
+    for ``cycles`` of the card's clock on ``device``'s current stream.  With
+    0 cycles it is the yardstick of what a launch costs; with many, the
+    host can queue work behind it and time that work on the card alone.
+    No kernel of the path: not counted."""
+    _launch("spin", cycles, device)
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,

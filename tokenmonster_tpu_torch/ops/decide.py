@@ -2,7 +2,8 @@
 
 Port of ``tokenmonster_tpu/ops/pallas_decide.py::make_decide_kernel`` and
 ``resolve_tokens``.  The kernel is ``decide_kernel`` in
-``csrc/tm_kernels.cu`` (per-thread body ``tmk::decide_at``);
+``csrc/tm_kernels.cu`` (per-position code ``tmk::decide_stage`` and
+``tmk::decide_tile_at``);
 ``decide_plain`` is the same function in PyTorch.  Score ints, NEG and the
 first-hit tie order are those of go/tokenmonster.go:1057, :1075-1108,
 :1132-1133.
@@ -160,19 +161,21 @@ def decide(m: torch.Tensor, mb: torch.Tensor | None, text: torch.Tensor,
     if mb is not None:
         _build.check(mb, "mb", torch.int32, dev, (N,))
     _build.check(text, "text", torch.uint8, dev, (N,))
-    _build.check(tabs.meta, "meta", torch.int32, dev)
-    _build.check(tabs.bb, "bb", torch.int32, dev, (256,))
     rows = 2 if tabs.has_delete else 1
+    _build.check(tabs.entries, "entries", torch.int32, dev,
+                 (rows, tabs.entries.shape[1], 4))
+    _build.check(tabs.bb, "bb", torch.int32, dev, (256,))
     ctl = torch.empty((rows, N), dtype=torch.int32, device=dev)
     tok = torch.empty((rows, N), dtype=torch.int32, device=dev)
     args = _build.DecideArgs(
         m=m.data_ptr(), mb=(mb if mb is not None else m).data_ptr(),
-        text=text.data_ptr(), meta=tabs.meta.data_ptr(),
+        text=text.data_ptr(), entries=tabs.entries.data_ptr(),
         bb=tabs.bb.data_ptr(), ctl=ctl.data_ptr(), tok=tok.data_ptr(),
-        N=N, meta_stride=tabs.meta.shape[1], n=n,
-        has_delete=int(tabs.has_delete), has_unk=int(tabs.has_unk),
-        unk_token=tabs.unk_token, lil_off=tabs.lil_off)
-    _build.launch("decide", args, dev, rows)
+        N=N, n_entries=tabs.entries.shape[1], n=n,
+        has_delete=int(tabs.has_delete),
+        has_unk=int(tabs.has_unk), unk_token=tabs.unk_token,
+        lil_off=tabs.lil_off)
+    _build.launch("decide", args, dev)
     if rows == 1:
         return ctl[0], tok[0]
     return ctl, tok

@@ -6,7 +6,8 @@ Port of ``tokenmonster_tpu/ops/stitch.py::stitched_keep`` and
 ``ops/pallas_stitch.py::device_stitch_compact`` as PyTorch ops (they were
 XLA in the JAX package), and of ``ops/pallas_stitch.py::
 make_compact_kernel``: the kernel is ``compact_kernel`` in
-``csrc/tm_kernels.cu`` (per-thread body ``tmk::compact_at``), the plain
+``csrc/tm_kernels.cu`` (per-thread code ``tmk::compact_word``,
+``compact_put``, ``compact_mark``, ``compact_zero4``), the plain
 version ``compact_plain``.
 
 The automaton state at every emission is (position, forwardDelete), so a
@@ -157,7 +158,8 @@ def compact(recs: torch.Tensor, toks: torch.Tensor, s: torch.Tensor,
     """Dense token words of the kept records: the CUDA kernel for CUDA
     tensors, the plain version for CPU ones.  ``recs``/``toks``: int32
     (T, L); ``s``/``e``/``q``: per-lane first and last kept record and the
-    output slot of record 0."""
+    output slot of record 0.  The kernel writes every word of the output,
+    the zeros too."""
     T, L = recs.shape
     if recs.device.type == "cpu":
         return compact_plain(recs, toks, s, e, q, out_len)
@@ -166,7 +168,7 @@ def compact(recs: torch.Tensor, toks: torch.Tensor, s: torch.Tensor,
     _build.check(toks, "toks", torch.int32, dev, (T, L))
     for name, v in (("s", s), ("e", e), ("q", q)):
         _build.check(v, name, torch.int32, dev, (L,))
-    out = torch.zeros(out_len, dtype=torch.int32, device=dev)
+    out = torch.empty(out_len, dtype=torch.int32, device=dev)
     args = _build.CompactArgs(
         recs=recs.data_ptr(), toks=toks.data_ptr(), s=s.data_ptr(),
         e=e.data_ptr(), q=q.data_ptr(), out=out.data_ptr(), out_len=out_len,

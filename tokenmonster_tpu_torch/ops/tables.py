@@ -16,6 +16,7 @@ is one trainer candidate's masked view of a superset's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -143,6 +144,77 @@ def build_meta_planes(vocab):
     bb = np.zeros(256, np.float32)
     bb[:] = vocab.begin_byte.astype(np.float32)
     return planes, bb.reshape(2, 128)
+
+
+E_WORDS = 4   # csrc/tm_kernels.cuh E_WORDS
+MAX_TOKEN_LEN = 63   # a match word holds a length in 6 bits
+
+
+def check_alternative_lengths(planes: np.ndarray) -> None:
+    """Raise for planes of ``build_meta_planes`` that hold an alternative
+    longer than MAX_TOKEN_LEN: the decide kernel relies on a second token
+    lying within 63 positions of its first."""
+    f0 = planes[0].reshape(-1).view(np.uint32)
+    longest = max(int((f0 >> 16 & 0xFF).max(initial=0)),
+                  int((f0 >> 24).max(initial=0)))
+    if longest > MAX_TOKEN_LEN:
+        raise ValueError(f"an alternative token of {longest} bytes is "
+                         f"longer than {MAX_TOKEN_LEN}")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_luts(rows: int, device: torch.device):
+    """``decide_entries``' tables of 256 on ``device``: a first token's
+    flag bits by branch and flag byte (3 x 256, flat), and by fd row its
+    word-count share by word count and an alternative's length field by
+    length; then the byte columns of the two planes in the order flags,
+    word counts, lengths, and the three branches' offsets into the
+    first."""
+    v = np.arange(256, dtype=np.int64)
+    bits = (v & 1) << 7 | (v >> 3 & 1) << 8 | (v >> 7) << 9
+    first = np.concatenate([bits | (v >> 5 & 1), bits, bits])
+    fd = np.arange(rows, dtype=np.int64)[:, None]
+    fnw = v[None] - fd
+    share = (np.maximum(fnw - 1, 0) + 100 * fnw + 100) << 9
+    length = np.maximum(v[None] - fd, 0) << 24
+    cols = np.array([0, 4, 6, 1, 5, 7, 2, 3], np.int64)
+    branch = np.array([0, 256, 512], np.int64)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        first.astype(np.int32), share.astype(np.int32),
+        length.astype(np.int32), cols, branch))
+
+
+def decide_entries(meta: torch.Tensor, rows: int) -> torch.Tensor:
+    """The decide kernel's table, (rows, R*128, E_WORDS) int32 on
+    ``meta``'s device, from the planes of ``build_meta_planes`` (``meta``,
+    (2, R*128), checked by ``check_alternative_lengths``): for fd row
+    ``fd`` and a token as the first of branch r (0: the match itself, 1
+    and 2: its alternatives), with f the first token's flag and fnw its
+    word count less fd, word r is
+      bit 0 (word 0)     the match's flag bit 5
+      bits 1-2 (word 0)  how many alternatives stand: 0, 1 or 2
+      bit 7  f & 1       bit 8  f >> 3 & 1
+      bits 9-23          (f >> 7) + max(fnw - 1, 0) + 100 fnw + 100
+      bits 24-31 (words 1, 2)  the alternative's length less fd
+    (everything of a branch's score that depends on the first token
+    alone), and word 3 the token's flag and word count (plane 0's low 16
+    bits), which the kernel reads of a second token.  Every field is a
+    function of one byte of the planes, so each is read from a table of
+    256 (``_entry_luts``): about 20 torch ops, so a candidate's table is
+    built on the card from its uploaded planes."""
+    first, share, length, cols, branch = _entry_luts(rows, meta.device)
+    n = meta.shape[1]
+    # the planes' bytes, little endian: flag, nwords, len1, len2 of plane
+    # 0, then aflag1, anw1, aflag2, anw2 of plane 1
+    b = meta.contiguous().view(torch.uint8).view(2, n, 4).permute(1, 0, 2)
+    b = b.reshape(n, 8).long().index_select(1, cols)
+    f, nw, lens = b[:, :3], b[:, 3:6], b[:, 6:]
+    words = first[f + branch] + share[:, nw]
+    words[:, :, 1:] += length[:, lens]
+    stands = (lens > 0).int()
+    words[:, :, 0] += (stands[:, 0] * (1 + stands[:, 1])) << 1
+    second = (meta[0] & 0xFFFF).expand(rows, n)
+    return torch.cat([words, second[:, :, None]], dim=-1)
 
 
 def ids3(vocab) -> np.ndarray:
@@ -278,9 +350,11 @@ class DeviceTables(nn.Module):
 
     Match: the flat composed field planes, displacement planes, the
     single-byte tables, the scalar vector (``smem_scalars``), the class
-    descriptors, the overflow keys and the key filter (``key_filter``).  Decide: the two meta planes and the
-    begin-byte table.  Id resolution: ``ids3``.  All integer buffers hold
-    u32 bit patterns as int32."""
+    descriptors, the overflow keys and the key filter (``key_filter``).
+    Decide: the two meta planes (``meta``, what the plain version
+    indexes), the kernel's table built from them (``decide_entries``) and
+    the begin-byte table.  Id resolution:
+    ``ids3``.  All integer buffers hold u32 bit patterns as int32."""
 
     def __init__(self, vocab, tables):
         super().__init__()
@@ -305,7 +379,10 @@ class DeviceTables(nn.Module):
         filt, self.filt_log2 = key_filter(tables)
         self.register_buffer("filt", _t(filt))
         planes, bb = build_meta_planes(vocab)
+        check_alternative_lengths(planes)
         self.register_buffer("meta", _t(planes.reshape(2, -1)))
+        self.register_buffer("entries", decide_entries(
+            self.meta, 2 if vocab.delete_token != DOES_NOT_EXIST else 1))
         self.register_buffer("bb", _t(bb.reshape(-1).astype(np.int32)))
         self.register_buffer("ids3", _t(ids3(vocab).view(np.int32)))
 
@@ -326,8 +403,8 @@ class CandidateTables:
 
     Per candidate, uploaded to the superset's device: the alive-masked
     ``fields``, ``single``, ``space_single`` and ``scalars``; the
-    candidate's ``meta`` planes and ``ids3`` at superset positions and its
-    ``bb``; its unk and delete ids.  Shared with the superset and never
+    candidate's ``meta`` planes and ``ids3`` at superset positions and
+    its ``bb`` (its ``entries`` are built there from the planes); its unk and delete ids.  Shared with the superset and never
     written: ``disp``, ``desc``, ``len_cls``, ``ovf_keys``, the key filter
     and the host geometry.  Every per-candidate tensor has its superset counterpart's
     shape and type, or the constructor raises: the geometry never changes
@@ -358,6 +435,8 @@ class CandidateTables:
                     f"{name}: candidate {t.dtype}{tuple(t.shape)} differs "
                     f"from the superset's {sup.dtype}{tuple(sup.shape)}")
             setattr(self, name, t.to(sup.device))
+        check_alternative_lengths(planes)
+        self.entries = decide_entries(self.meta, base.entries.shape[0])
         _vocab_config(self, vocab)
 
 
