@@ -15,12 +15,19 @@ card alone, ``device_ms``), then the staged device chain, the end-to-end
 call and the native tokenizer.
 
 The trainer phase distils a getalltokens pool of 8 MiB of real text toward
-32,000 ids: match, decide and follow on a candidate's masked superset
-tables against their plain versions, ``GpuCandidateScorer.score`` against
-the native scorer on the whole text, the junction repair on a forced run,
-and three seeded rounds of the port's ``train_vocab`` on the card against
-its native backend (every scored candidate, the deletions of each round,
-the files written), with times.
+32,000 ids in the trainer's REMAP mode (match on a candidate's masked
+superset tables, each match word mapped to the candidate's index, decide
+and follow on candidate-sized tables): the kernels against their plain
+versions, ``GpuCandidateScorer.score`` against the native scorer on the
+whole text, the junction repair on a forced run, and two seeded rounds
+of the port's ``train_vocab`` on the card against its native backend
+(every scored candidate, the deletions of each round, the files
+written), with times.  The reference-scale phase does the same on a pool
+whose superset holds more than 2^20 entries.  The pipeline phase runs
+getalltokens, trainvocab (cuda against native) and exportvocab from the
+shell, then serves the exported vocabulary through ``load(...,
+device="cuda")`` and ``load_multiprocess_safe`` (its server on the
+card).
 
 Phases print as they go; any failure raises and exits non-zero.  The line
 before the last is a JSON object of the kernels; the last line is
@@ -59,9 +66,21 @@ TRAIN_MIN_OCCUR = 57          # getalltokens min_occur_total: the source's
                               # gives 65,839 on this text, 60 gave 63,064
 TRAIN_POOL = (60_000, 120_000)
 TRAIN_VOCAB = 32000
-TRAIN_ROUNDS = 3
+TRAIN_ROUNDS = 2
 TRAIN_SEED = 7
 TRAIN_KERNELS = ("match", "decide", "follow")
+BIG_BYTES = 15 << 20          # the reference-scale pool's text: all the
+                              # library holds (10.7 MB on the H100's host;
+                              # the source run: 100 MB)
+BIG_MIN_OCCUR = 7             # lowered from the source's 60 so that this
+                              # text's superset passes BIG_ENTRIES: 10 gave
+                              # a pool of 495,183 and 750,243 entries, 6
+                              # gave 911,989 and 1,394,357 (the source:
+                              # 803,091 and 1,212,993)
+BIG_ENTRIES = 1 << 20         # the superset must hold more entries
+BIG_CANDIDATES = 3
+BIG_ROUNDS = 2
+CLI_ROUNDS = 2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The least time the card could take for a kernel's work: its bytes (each
 # input read once, each output written once) over HBM3's 3.35 TB/s
@@ -396,16 +415,32 @@ def trainer_inputs(dev, card: str, work: str):
                            t_rec=tk._t_rec(False), candidate=candidate)
 
 
+def gather_work(buf, n: int, tabs):
+    """REMAP mode's rank gather of a dispatch's match words (between match
+    and decide; torch ops, not a kernel) on a candidate's tables: its
+    closure and its (bytes, operations).  It reads both words and the rank
+    table and writes two words, about four operations a word."""
+    from tokenmonster_tpu_torch.ops.match import match
+    from tokenmonster_tpu_torch.ops.scan import remap_matches
+    m, mb = match(buf, n, tabs)
+
+    def gather():
+        return remap_matches(m, tabs.rank), remap_matches(mb, tabs.rank)
+    return gather, (nbytes(m, mb, tabs.rank) + 2 * nbytes(m), 8 * m.numel())
+
+
 def masked_pairs(t, tabs):
     """(kernel, plain) closures of the trainer's kernels on one
     candidate's tables and ``trainer_inputs`` ``t``'s dispatch, on the
-    same inputs, and each one's (bytes, operations)."""
+    same inputs, and each one's (bytes, operations).  Decide is given the
+    match words mapped to the candidate's indices (REMAP mode)."""
     from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
     from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
     from tokenmonster_tpu_torch.ops.match import match, match_plain
-    from tokenmonster_tpu_torch.ops.scan import OVERLAP_SCAN
+    from tokenmonster_tpu_torch.ops.scan import OVERLAP_SCAN, remap_matches
     buf, n, chunk, t_rec = t.buf, t.n, t.tk.chunk, t.t_rec
     m, mb = match(buf, n, tabs)
+    m, mb = remap_matches(m, tabs.rank), remap_matches(mb, tabs.rank)
     ctl, tok = decide(m, mb, buf, n, tabs)
     recs = follow(ctl, tok, n, chunk, LANES, OVERLAP_SCAN, t_rec)[0]
     pairs = {
@@ -609,6 +644,16 @@ def trainer_phase(dev, card: str) -> dict:
               f"{100 * b_ms / ms:.2f}% ({100 * b_ms / device_ms:.2f}% of "
               f"the card alone) (N={t.buf.numel()}, {LANES} lanes, "
               f"masked superset of {len(sup.vocab.tokens)}) [{card}]")
+    gather, g_work = gather_work(t.buf, t.n, tabs)
+    g_bound, g_by = bound(*g_work)
+    g_ms = cuda_ms(gather)
+    g_device_ms = cuda_ms(gather, queued=True)
+    out["decide"].update(trainer_gather_ms=g_ms,
+                         trainer_gather_device_ms=g_device_ms,
+                         trainer_gather_bound_ms=g_bound)
+    print(f"rank gather (torch ops, REMAP mode): {g_ms:.4f} ms a dispatch "
+          f"from the host, {g_device_ms:.4f} on the card alone, bound "
+          f"{g_bound:.4f} ms ({g_by}) [{card}]")
     # a candidate's decide table is built around the launches, by torch ops
     # on its uploaded planes: no kernel's time or bound holds it
     rows = tabs.entries.shape[0]
@@ -628,6 +673,489 @@ def trainer_phase(dev, card: str) -> dict:
           f"{smem_plan(t.buf, t.n, tabs, LANES, tk.chunk, t.t_rec)}")
     require(not failed, f"trainer phase: {len(failed)} checks failed")
     return out
+
+def _popcount_share(words: torch.Tensor) -> float:
+    """The share of set bits in int32 ``words``."""
+    return float(np.unpackbits(words.cpu().numpy().view(np.uint8)).mean())
+
+
+def bigpool_phase(dev, card: str) -> dict:
+    """The trainer at the reference configuration's pool scale: a
+    getalltokens pool whose superset holds more than 2^20 entries, armed
+    in REMAP mode; match on the masked superset tables, the rank gather,
+    decide and follow on candidate-sized tables against their plain
+    versions; seeded 32,000-id candidates scored on the whole text against
+    native; seeded ``train_vocab`` rounds against the native backend.
+    Returns, per kernel on the path, its numbers at these shapes."""
+    import random
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from tokenmonster_tpu_torch.core import capcode as cc
+    from tokenmonster_tpu_torch.core.normalize import Normalizer
+    from tokenmonster_tpu_torch.core.vocab import normalize_and_capcode
+    from tokenmonster_tpu_torch.corpus import stdlib_text
+    from tokenmonster_tpu_torch.ops import _build
+    from tokenmonster_tpu_torch.ops.hashmatch import build_hashmatch
+    from tokenmonster_tpu_torch.ops.scan import MARGIN
+    from tokenmonster_tpu_torch.parallel.score import score_strips
+    from tokenmonster_tpu_torch.train import trainvocab as port
+    from tokenmonster_tpu_torch.train.getalltokens import (get_all_tokens,
+                                                           load_tokens_file,
+                                                           save_tokens_file)
+    from tokenmonster_tpu_torch.train.score_helpers import \
+        candidate_runtime_state
+
+    failed = []
+
+    def check(cond, msg: str) -> None:
+        if not cond:
+            print(f"FAILED: {msg}", flush=True)
+            failed.append(msg)
+
+    def native_score(cand, datasets):
+        return port.CandidateScorer(cand.charset, cand.using_capcode,
+                                   cand.normalizer.flag).score(cand, datasets)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_bigpool_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        raw, _dropped = stdlib_text(None, BIG_BYTES)
+        t0 = time.perf_counter()
+        counter, char_table, header = get_all_tokens(
+            raw, "balanced", charset=1, normalization="nfd",
+            using_capcode=2, min_occur_total=BIG_MIN_OCCUR)
+        gat_s = time.perf_counter() - t0
+        tok_path = os.path.join(work, "pool.tok")
+        save_tokens_file(tok_path, counter, char_table, header)
+        dic = load_tokens_file(tok_path)
+        capcode, norm_flag = dic["using_capcode"], dic["norm_flag"]
+        text = normalize_and_capcode(raw, capcode, Normalizer(norm_flag))
+        pool = port.superset_pool(tok_path)
+        print(f"pool: {len(counter)} candidates from {len(raw)} bytes of "
+              f"standard-library text (balanced, charset 1, nfd, capcode 2, "
+              f"min occur {BIG_MIN_OCCUR}) in {gat_s:.1f} s; superset pool "
+              f"{len(pool)} tokens ('D ' forms and the 256 bytes added); "
+              f"{len(text)} normalized bytes [{card}]")
+
+        # arm, with its host parts timed: the superset vocabulary
+        # (Vocab._generate), the CHD placement, then the upload, key
+        # filter and token index
+        armed = {}
+
+        class Timed(port.GpuCandidateScorer):
+            def build(self, token_list):
+                t0 = time.perf_counter()
+                v = super().build(token_list)
+                armed.setdefault("build_s", time.perf_counter() - t0)
+                return v
+
+        def placement(*args, **kw):
+            t0 = time.perf_counter()
+            out = build_hashmatch(*args, **kw)
+            armed["placement_s"] = time.perf_counter() - t0
+            return out
+
+        sc = Timed(dic["charset"], capcode, norm_flag, device=dev)
+        sc.set_specials([])
+        t0 = time.perf_counter()
+        with mock.patch.object(port, "build_hashmatch", placement):
+            sc.prepare(pool)
+        torch.cuda.synchronize()
+        arm_s = time.perf_counter() - t0
+        sup = sc._sup
+        base = sup.tokenizer.tables
+        n_sup = len(sup.vocab.tokens)
+        require(n_sup > BIG_ENTRIES,
+                f"superset of {n_sup} entries, not above {BIG_ENTRIES}")
+        require(base.match_only, "the superset was not armed in REMAP mode")
+        fill = _popcount_share(base.filt)
+        print(f"superset: {n_sup} entries, armed in REMAP mode in "
+              f"{arm_s:.3f} s (vocabulary {armed['build_s']:.3f} s, CHD "
+              f"placement {armed['placement_s']:.3f} s, upload, key filter "
+              f"and index {arm_s - armed['build_s'] - armed['placement_s']:.3f}"
+              f" s); {base.idx1_bits}-bit index fields, match tables "
+              f"{nbytes(base.fields, base.disp)} B, key filter "
+              f"{1 << base.filt_log2} bits, {100 * fill:.1f}% set [{card}]")
+
+        singles = sorted({t for t in dic["tokens"] if len(t) == 1}
+                         | {bytes([b]) for b in (cc.DELETE_TOKEN,
+                                                 cc.CHARACTER_TOKEN,
+                                                 cc.WORD_TOKEN)})
+        multi = [t for t in pool if len(t) > 1]
+        rng = random.Random(TRAIN_SEED)
+        tk = sup.tokenizer
+        _n, lanes, bufs = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
+        require(lanes == LANES, f"{lanes} lanes staged")
+        t = SimpleNamespace(buf=bufs[0][0], n=bufs[0][1], tk=tk,
+                            t_rec=tk._t_rec(False))
+        dispatches = len(tk._plan(len(text))[1])
+
+        errs = dict.fromkeys(TRAIN_KERNELS, 0)
+        mask_ms, gather_ms, score_ms, repairs = [], [], [], 0
+        for ci in range(BIG_CANDIDATES):
+            rng.shuffle(multi)
+            cand = sc.build(singles + multi[:TRAIN_VOCAB - len(singles)])
+            t0 = time.perf_counter()
+            tabs = candidate_runtime_state(sup, cand)
+            torch.cuda.synchronize()
+            mask_ms.append((time.perf_counter() - t0) * 1e3)
+            pairs, cwork = masked_pairs(t, tabs)
+            for name in TRAIN_KERNELS:
+                errs[name] = max(errs[name], compare(pairs, name))
+            gather, g_work = gather_work(t.buf, t.n, tabs)
+            gather_ms.append(cuda_ms(gather, queued=True) * dispatches)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got_s, got_t, got_m, r = score_strips(tk, tabs, [text],
+                                                  len(cand.reverse))
+            end.record()
+            end.synchronize()
+            score_ms.append(start.elapsed_time(end))
+            repairs += r
+            want_s, want_t, want_m = native_score(cand, [text])
+            got_miss = set(np.nonzero(got_m)[0].tolist())
+            check(np.array_equal(got_s, want_s) and got_t == want_t
+                  and got_miss == want_m,
+                  f"reference-scale candidate {ci}: scores differ from "
+                  "native")
+            print(f"candidate {ci}: {len(cand.reverse)} ids; {got_t} tokens "
+                  f"(native {want_t}), missing {sorted(got_miss)}, scores "
+                  f"equal {np.array_equal(got_s, want_s)}, junction repairs "
+                  f"{r}; match/decide/follow max_abs_err {errs}")
+        check(not any(errs.values()), f"kernels disagree: {errs}")
+        g_bound, g_by = bound(*g_work)
+        g_ms = cuda_ms(gather)
+        g_device_ms = cuda_ms(gather, queued=True)
+        print(f"per candidate: host masking {statistics.median(mask_ms):.3f}"
+              f" ms (upload and rank included), rank gather "
+              f"{statistics.median(gather_ms):.3f} ms on the card alone "
+              f"({dispatches} dispatches of two gathers, {g_device_ms:.4f} "
+              f"ms a dispatch, {g_ms:.4f} from the host, bound "
+              f"{g_bound:.4f} ms, {g_by}), device score "
+              f"{statistics.median(score_ms):.3f} ms over {len(text)} bytes "
+              f"(CUDA events, read-back included); medians of "
+              f"{BIG_CANDIDATES} [{card}]")
+
+        # train_vocab on the card against the native backend, the loop's
+        # own scorer armed on the placement built above
+        scored, scorers, score_s, native_score_s = [], [], [], []
+
+        class Recording(port.GpuCandidateScorer):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                scorers.append(self)
+
+            def prepare(self, superset_tokens, hashmatch_tables=None):
+                same = list(superset_tokens) == pool
+                t0 = time.perf_counter()
+                super().prepare(superset_tokens,
+                                sup.hashmatch if same else None)
+                torch.cuda.synchronize()
+                self.arm_s = time.perf_counter() - t0
+
+            def score(self, cand, datasets):
+                t0 = time.perf_counter()
+                res = super().score(cand, datasets)
+                score_s.append(time.perf_counter() - t0)
+                scored.append((cand, datasets, res))
+                return res
+
+        class TimedNative(port.CandidateScorer):
+            def score(self, cand, datasets):
+                t0 = time.perf_counter()
+                res = super().score(cand, datasets)
+                native_score_s.append(time.perf_counter() - t0)
+                return res
+
+        log = _RoundLog()
+        logger = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
+        logger.addHandler(log)
+        logger.setLevel(logging.INFO)
+
+        def config(backend):
+            return port.TrainConfig(vocab_size=TRAIN_VOCAB, workers=2,
+                                   fast=True, seed=TRAIN_SEED,
+                                   max_rounds=BIG_ROUNDS, backend=backend)
+
+        res_cuda = os.path.join(work, "cuda")
+        res_native = os.path.join(work, "native")
+        _build.reset_launches()
+        with mock.patch.object(port, "GpuCandidateScorer", Recording):
+            rounds_cuda, cuda_s = _train(lambda: port.train_vocab(
+                raw, tok_path, res_cuda, config("cuda"), device=dev), log)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        with mock.patch.object(port, "CandidateScorer", TimedNative):
+            rounds_native, native_s = _train(lambda: port.train_vocab(
+                raw, tok_path, res_native, config("native")), log)
+        logger.removeHandler(log)
+        for line in rounds_cuda:
+            print(f"cuda   {line}")
+        check(rounds_cuda == rounds_native,
+              f"rounds differ from native: {rounds_native}")
+        files = _dir_bytes(res_cuda)
+        check(files == _dir_bytes(res_native),
+              f"results differ from native's: {sorted(files)}")
+        check(len(scorers) == 1
+              and scorers[0]._sup.tokenizer.tables.match_only,
+              "the loop's scorer was not armed once in REMAP mode")
+        for cand, datasets, (got_s, got_t, got_miss) in scored:
+            want_s, want_t, want_m = native_score(cand, datasets)
+            check(np.array_equal(got_s, want_s) and got_t == want_t
+                  and got_miss == want_m,
+                  "a candidate of the REMAP run differs from native")
+        check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+              f"a trainer kernel was not launched: {launches}")
+        arm = scorers[0].arm_s if scorers else 0.0
+        written = (f"{len(files)} files equal ({', '.join(sorted(files))})"
+                   if files else f"no file written by either in {BIG_ROUNDS} "
+                   "rounds (the loop's first checkpoint is its midway "
+                   "target's)")
+        print(f"train_vocab at reference pool scale: {len(scored)} "
+              f"candidates scored on the card and by native, equal; "
+              f"{written}; junction repairs "
+              f"{scorers[0].repairs if scorers else 0}; launches {launches} "
+              f"({launches['match'] / max(1, len(scored)):.0f} dispatches a "
+              f"candidate: its strips, one or more each)")
+        print(f"wall per round: cuda {(cuda_s - arm) / BIG_ROUNDS:.3f} s after "
+              f"a {arm:.3f} s arm (placement shared), of which score calls "
+              f"{sum(score_s) / BIG_ROUNDS:.3f} s (two threads); native "
+              f"{native_s / BIG_ROUNDS:.3f} s, of which score calls "
+              f"{sum(native_score_s) / BIG_ROUNDS:.3f} s ({os.cpu_count()} "
+              f"host threads) [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    out = {}
+    for name in TRAIN_KERNELS:
+        kernel, plain = pairs[name]
+        b_ms, b_by = bound(*cwork[name])
+        ms = cuda_ms(kernel)
+        device_ms = cuda_ms(kernel, queued=True)
+        plain_ms = cuda_ms(plain, calls=1, repeat=3)
+        tables_of = (f"masked superset of {n_sup}" if name == "match" else
+                     f"candidate tables of {tabs.meta.shape[1]} slots")
+        out[name] = {"bigpool_launches": launches[name],
+                     "bigpool_max_abs_err": errs[name], "bigpool_ms": ms,
+                     "bigpool_device_ms": device_ms,
+                     "bigpool_plain_ms": plain_ms,
+                     "bigpool_bound_ms": b_ms, "bigpool_bound_by": b_by,
+                     "bigpool_roofline_share": b_ms / ms,
+                     "bigpool_device_roofline_share": b_ms / device_ms}
+        print(f"{name}: reference-scale shapes kernel {ms:.4f} ms from the "
+              f"host ({device_ms:.4f} on the card alone), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{cwork[name][0]} B, {cwork[name][1]} ops), roofline "
+              f"{100 * b_ms / ms:.2f}% ({100 * b_ms / device_ms:.2f}% of "
+              f"the card alone) (N={t.buf.numel()}, {LANES} lanes, "
+              f"{tables_of}) [{card}]")
+    out["match"]["bigpool_filter_fill"] = fill
+    out["decide"].update(bigpool_gather_ms=g_ms,
+                         bigpool_gather_device_ms=g_device_ms,
+                         bigpool_gather_bound_ms=g_bound)
+    print(f"shared memory at reference-scale shapes: "
+          f"{smem_plan(t.buf, t.n, tabs, LANES, tk.chunk, t.t_rec)}")
+    require(not failed, f"reference-scale trainer: {len(failed)} checks "
+                        "failed")
+    return out
+
+# Imported at start-up by every Python process of the shell pipeline (it is
+# put first on PYTHONPATH): refuses jax and the JAX package, seeds
+# random.Random's default (the CLI has no seed flag, and two trainvocab
+# runs compare only on the same draws) and reports the kernel launches at
+# exit.
+PIPELINE_SITE = r"""
+import atexit, json, os, random, sys
+
+REFUSED = ("jax", "tokenmonster_tpu")
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == r or name.startswith(r + ".") for r in REFUSED):
+            raise ImportError(f"refused: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+_seed = os.environ.get("SMOKE_RANDOM_SEED")
+if _seed is not None:
+    class _Seeded(random.Random):
+        def __init__(self, x=None):
+            super().__init__(int(_seed) if x is None else x)
+
+    random.Random = _Seeded
+
+
+@atexit.register
+def _report():
+    b = sys.modules.get("tokenmonster_tpu_torch.ops._build")
+    print("LAUNCHES " + json.dumps(dict(b.launches) if b else {}),
+          file=sys.stderr, flush=True)
+"""
+
+
+def cli_phase(dev, card: str) -> dict:
+    """The pipeline from the shell, each step ``python -m
+    tokenmonster_tpu_torch ...`` in a process that refuses jax and the JAX
+    package: getalltokens on the trainer phase's configuration, trainvocab
+    with ``-backend cuda`` against ``-backend native`` (every file equal),
+    exportvocab; then the exported vocabulary through ``load(...,
+    device="cuda")`` on the main path's text (FNV-equal to native, no
+    fallback) and through ``load_multiprocess_safe`` (its server spawned by
+    the client on the card, refusing both names too: the main text on its
+    device route, whose launches it reports, and 64 KiB on its host
+    route).  Returns the kernel launches of the in-process tokenize."""
+    import shutil
+    import tempfile
+
+    import tokenmonster_tpu_torch as tt
+    from tokenmonster_tpu_torch.core.vocab import Vocab
+    from tokenmonster_tpu_torch.corpus import stdlib_text
+    from tokenmonster_tpu_torch.native import NativeVocab
+    from tokenmonster_tpu_torch.ops import _build
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_",
+                            dir=os.path.join(ROOT, "build"))
+    site = os.path.join(work, "site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(PIPELINE_SITE)
+    path = os.pathsep.join([site, ROOT] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    env = {**os.environ, "PYTHONPATH": path,
+           "SMOKE_RANDOM_SEED": str(TRAIN_SEED)}
+
+    def cli(*args) -> tuple[str, dict, float]:
+        """(stdout, kernel launches, seconds) of one command."""
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "tokenmonster_tpu_torch", *args],
+            cwd=work, env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        require(res.returncode == 0, f"{args[0]} exited {res.returncode}: "
+                                     f"{res.stderr[-3000:]}")
+        line = [ln for ln in res.stderr.splitlines()
+                if ln.startswith("LAUNCHES ")]
+        require(len(line) == 1, f"{args[0]}: the refusing start-up did not "
+                                "run")
+        print(f"$ python -m tokenmonster_tpu_torch {' '.join(args)}: "
+              f"{secs:.1f} s; {res.stdout.strip().splitlines()[-1]}")
+        return res.stdout, json.loads(line[0][9:]), secs
+
+    try:
+        raw, _dropped = stdlib_text(None, TRAIN_BYTES)
+        with open(os.path.join(work, "data.txt"), "wb") as f:
+            f.write(raw)
+        cli("getalltokens", "-dataset", "data.txt", "-output", "pool.tok",
+            "-mode", "balanced", "-charset", "utf-8", "-norm", "nfd",
+            "-capcode", "2", "-min-occur", str(TRAIN_MIN_OCCUR))
+        train = ("trainvocab", "-dataset", "data.txt", "-dictionary",
+                 "pool.tok", "-vocab-size", str(TRAIN_VOCAB), "-workers",
+                 "2", "-fast", "-max-rounds", str(CLI_ROUNDS))
+        _out, cuda_launches, cuda_s = cli(*train, "-dir", "cuda",
+                                          "-backend", "cuda", "-device",
+                                          dev.type)
+        _out, native_launches, native_s = cli(*train, "-dir", "native",
+                                              "-backend", "native")
+        files = _dir_bytes(os.path.join(work, "cuda"))
+        require(files and files == _dir_bytes(os.path.join(work, "native")),
+                f"trainvocab -backend cuda wrote other files than native: "
+                f"{sorted(files)}")
+        require(all(cuda_launches.get(k, 0) > 0 for k in TRAIN_KERNELS)
+                and not any(native_launches.values()),
+                f"launches: cuda {cuda_launches}, native {native_launches}")
+        print(f"trainvocab: {CLI_ROUNDS} rounds, -backend cuda "
+              f"{cuda_s:.1f} s (launches {cuda_launches}), -backend native "
+              f"{native_s:.1f} s; the {len(files)} files are equal "
+              f"({', '.join(sorted(files))}) [{card}]")
+        cli("exportvocab", "-input", "cuda", "-output", "out.vocab")
+        exported = os.path.join(work, "out.vocab")
+
+        core = Vocab.load(exported)
+        text, dropped = stdlib_text(core, MAIN_BYTES)
+        vocab = tt.load(exported, device=dev, route="device")
+        want, _wmiss = NativeVocab(core).tokenize(core.normalize(text))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ids = np.asarray(vocab.tokenize(text), np.uint32)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        tk = vocab._tpu
+        require(vocab.last_route == "device" and tk.host_fallbacks == 0,
+                f"route {vocab.last_route}, fallbacks {tk.fallbacks}")
+        require(fnv1a64(ids) == fnv1a64(want) and np.array_equal(ids, want),
+                "the exported vocabulary's ids differ from native")
+        require(all(launches[k] > 0 for k in TPU_KERNELS),
+                f"a kernel was not launched: {launches}")
+        print(f"exported vocabulary: {len(core)} tokens; load(..., "
+              f"device='cuda').tokenize of {len(text)} bytes ({dropped} "
+              f"lines dropped): {len(ids)} ids, fnv1a64 {fnv1a64(ids):016x} "
+              f"equal to native, fallbacks {tk.fallbacks}, launches "
+              f"{launches}, {e2e_s * 1e3:.1f} ms (first call) [{card}]")
+
+        # the server subprocess inherits this process's stderr: send it to
+        # a file while the server lives, for its LAUNCHES line at exit
+        piece = text[:64 << 10]
+        piece = piece[:piece.rfind(b"\n") + 1]
+        saved = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = path
+        err_path = os.path.join(work, "server.err")
+        sys.stderr.flush()
+        saved_err = os.dup(2)
+        with open(err_path, "wb") as err:
+            os.dup2(err.fileno(), 2)
+        try:
+            remote = tt.load_multiprocess_safe(exported)   # device "cuda"
+            try:
+                t0 = time.perf_counter()
+                big = np.asarray(remote.tokenize(text), np.uint32)
+                remote_s = time.perf_counter() - t0
+                got = np.asarray(remote.tokenize(piece), np.uint32)
+                decoded = remote.decode(got)
+                remote.unload()
+            finally:
+                remote._server.close()
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved_err, 2)
+            os.close(saved_err)
+            if saved is None:
+                del os.environ["PYTHONPATH"]
+            else:
+                os.environ["PYTHONPATH"] = saved
+        with open(err_path, errors="replace") as f:
+            err_lines = f.read().splitlines()
+        line = [ln for ln in err_lines if ln.startswith("LAUNCHES ")]
+        require(len(line) == 1, "the server's refusing start-up did not run: "
+                                f"{err_lines[-20:]}")
+        server_launches = json.loads(line[0][9:])
+        require(np.array_equal(big, want), "the server's ids of the main "
+                                           "text differ from native")
+        want_p, _m = NativeVocab(core).tokenize(core.normalize(piece))
+        require(np.array_equal(got, want_p), "the server's ids differ "
+                                             "from native")
+        require(decoded == vocab.decode(got),
+                "the server's decode differs from load(...).decode")
+        require(all(server_launches.get(k, 0) > 0 for k in TPU_KERNELS),
+                f"the server did not tokenize on the card: launches "
+                f"{server_launches}")
+        print(f"load_multiprocess_safe (server -device cuda): {len(text)} "
+              f"bytes through the server subprocess, {len(big)} ids equal "
+              f"to native, {remote_s * 1e3:.1f} ms (first call, pipe "
+              f"included), the server's launches {server_launches}; "
+              f"{len(piece)} bytes on its host route, {len(got)} ids equal "
+              f"to native [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -817,8 +1345,16 @@ def main() -> int:
     phase("trainer: candidate scoring and train_vocab")
     trainer = trainer_phase(dev, card)
     require_self_contained("the trainer")
+    phase("trainer at reference pool scale: REMAP mode")
+    bigpool = bigpool_phase(dev, card)
+    require_self_contained("the reference-scale trainer")
+    phase("the pipeline from the shell")
+    pipeline = cli_phase(dev, card)
+    require_self_contained("the pipeline")
     for k in kernels:
         k.update(trainer.get(k["name"], {}))
+        k.update(bigpool.get(k["name"], {}))
+        k["pipeline_launches"] = pipeline[k["name"]]
 
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms,
                       "launch_floor_device_ms": floor_device_ms}))

@@ -117,7 +117,8 @@ def test_native_tokenize_and_score_equal_jax(name):
 def test_api_vocab_equals_jax():
     """The port's user API on its native route (small inputs, route
     "auto") equals the JAX package's: ids, dtype, decode, counts and the
-    dictionary view."""
+    dictionary view, and so do the ids of its multiprocess-safe
+    client."""
     path = os.path.join(EXAMPLES, "realtext-1024-fast.vocab")
     jv, tv = japi.load(path), tapi.load(path, device="cpu")
     texts = [seeded_text(40 + i, 80).decode() for i in range(3)]
@@ -133,5 +134,9 @@ def test_api_vocab_equals_jax():
             tv.normalization()) == (jv.vocab_size, jv.capcode(),
                                     jv.charset(), jv.mode(),
                                     jv.normalization())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tapi.load_multiprocess_safe(path)
+    remote = tapi.load_multiprocess_safe(path, device="cpu")  # its server
+    try:
+        np.testing.assert_array_equal(remote.tokenize(texts[0]),
+                                      jv.tokenize(texts[0]))
+    finally:
+        remote._server.close()

@@ -19,12 +19,13 @@ from tokenmonster_tpu_torch.corpus import (main_dispatch, one_row_vocab,
                                            stdlib_text)
 from tokenmonster_tpu_torch.core.vocab import Vocab
 from tokenmonster_tpu_torch.native import NativeVocab
-from tokenmonster_tpu_torch.ops import _build, stitch
+from tokenmonster_tpu_torch.ops import _build, stitch, tables
 from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
 from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
 from tokenmonster_tpu_torch.ops.follow import window as follow_window
 from tokenmonster_tpu_torch.ops.match import match, match_args, match_plain
-from tokenmonster_tpu_torch.ops.scan import MARGIN, OVERLAP_SCAN, GpuTokenizer
+from tokenmonster_tpu_torch.ops.scan import (MARGIN, OVERLAP_SCAN, GpuTokenizer,
+                                            remap_matches)
 from tokenmonster_tpu_torch.train.score_helpers import candidate_runtime_state
 from tokenmonster_tpu_torch.train.trainvocab import GpuCandidateScorer
 
@@ -392,6 +393,7 @@ def test_kernels_on_masked_tables_equal_plain(trainer):
     m, mb = match(buf, n, tabs)
     for g, w in zip((m, mb), match_plain(buf, n, tabs)):
         _equal(g, w)
+    m, mb = remap_matches(m, tabs.rank), remap_matches(mb, tabs.rank)
     ctl, tok = decide(m, mb, buf, n, tabs)
     for g, w in zip((ctl, tok), decide_plain(m, mb, buf, n, tabs)):
         _equal(g, w)
@@ -434,6 +436,7 @@ def test_zero_advance_step_on_card(cuda):
     buf, n, _last = bufs[0]
     tabs = candidate_runtime_state(sc._sup, cand)
     m, mb = match(buf, n, tabs)
+    m, mb = remap_matches(m, tabs.rank), remap_matches(mb, tabs.rank)
     ctl, tok = decide(m, mb, buf, n, tabs)
     for g, w in zip((ctl, tok), decide_plain(m, mb, buf, n, tabs)):
         _equal(g, w)
@@ -464,3 +467,46 @@ def test_junction_repairs_on_card(cuda):
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1:] == want[1:]
     assert 2 <= sc.repairs <= 30
+
+
+@pytest.mark.parametrize("how", ["below_limit", "at_limit"])
+def test_remap_scorer_on_card_equals_native(trainer, monkeypatch, how):
+    """REMAP mode on the card, on a superset below the entry limit and at
+    it (the limit lowered to its size): the superset's match tables, each
+    candidate's match words mapped to its indices, decide and follow on
+    candidate-sized tables equal their plain versions; scores equal
+    native's and those of a scorer armed on its own placement."""
+    sc0, cand, data = trainer
+    sup0 = sc0._sup
+    if how == "at_limit":
+        monkeypatch.setattr(tables, "MAX_ENTRIES", len(sup0.vocab.tokens))
+    sc = GpuCandidateScorer(sup0.vocab.charset, sup0.vocab.using_capcode,
+                            sup0.vocab.normalizer.flag, device=sc0.device)
+    sc.set_specials([])
+    sc.prepare([bytes(t) for t in sup0.vocab.tokens],
+               hashmatch_tables=sup0.hashmatch)
+    assert sc._sup.tokenizer.tables.match_only
+    tk = sc._sup.tokenizer
+    _n, _lanes, bufs = tk.stage(data[:(LANES - 1) * CHUNK + MARGIN])
+    buf, n, _last = bufs[0]
+    tabs = candidate_runtime_state(sc._sup, cand)
+    assert tabs.meta.shape[1] == tables.meta_width(len(cand.tokens))
+    m, mb = match(buf, n, tabs)
+    for g, w in zip((m, mb), match_plain(buf, n, tabs)):
+        _equal(g, w)
+    m, mb = remap_matches(m, tabs.rank), remap_matches(mb, tabs.rank)
+    ctl, tok = decide(m, mb, buf, n, tabs)
+    for g, w in zip((ctl, tok), decide_plain(m, mb, buf, n, tabs)):
+        _equal(g, w)
+    t_rec = tk._t_rec(False)
+    got = follow(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec)
+    want = follow_plain(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    strips = [data[:5000], data[5000:70000 + (LANES - 1) * CHUNK]]
+    got = sc.score(cand, strips)
+    want = native_score(cand, strips)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:] and got[2]
+    other = sc0.score(cand, strips)
+    np.testing.assert_array_equal(got[0], other[0])

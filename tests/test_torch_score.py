@@ -4,11 +4,13 @@ bit (tolerance 0: every output is an integer):
 
 - the masked-table copies (``ops/tables.py``) against ``pallas_match``'s
   ``flat_tables``/``smem_scalars``/``_single_tbl`` with ``alive``, and the
-  candidate state against ``train/score_helpers.py``'s;
-- port match and decide on ``CandidateTables`` against the JAX kernels
-  given ``tabs=``, ``space_empty=`` and the candidate's planes (the JAX
-  decide's advances read as the port writes them, ``port_ctl``), and
-  against port match and decide on tables built from the candidate alone;
+  candidate state against ``train/score_helpers.py``'s in REMAP mode;
+- port match on ``CandidateTables`` against the JAX kernel given
+  ``tabs=`` and ``space_empty=``, and port decide on the match words
+  mapped through ``rank`` against the JAX kernel given the same words and
+  the candidate's planes (its advances read as the port writes them,
+  ``port_ctl``), and against port match and decide on tables built from
+  the candidate alone;
 - ``device_stitch_score`` against ``ops/stitch.py``'s;
 - ``GpuCandidateScorer(device="cpu")`` on the pool and strips of
   ``tests/test_pallas_scorer.py`` against the JAX ``CandidateScorer``'s
@@ -31,6 +33,7 @@ from tokenmonster_tpu_torch.ops import tables as ttab
 from tokenmonster_tpu_torch.ops.decide import decide
 from tokenmonster_tpu_torch.ops.follow import follow
 from tokenmonster_tpu_torch.ops.match import match
+from tokenmonster_tpu_torch.ops.scan import remap_matches
 from tokenmonster_tpu_torch.ops.stitch import device_stitch_score
 from tokenmonster_tpu_torch.train import score_helpers
 from tokenmonster_tpu_torch.train.trainvocab import GpuCandidateScorer
@@ -81,7 +84,7 @@ def _prepared(name):
     sc.set_specials([])
     sc.prepare(tokens)
     sup = sc._sup
-    pal = {"v_sup": sup.vocab, "tabs": sup.hashmatch, "remap": False,
+    pal = {"v_sup": sup.vocab, "tabs": sup.hashmatch, "remap": True,
            "has_delete": sup.vocab.delete_token != 0xFFFFFF,
            "sup_index": sup.index}
     cand = candidate(sc, tokens, drop_sets(v, 5)[1], unk)
@@ -97,11 +100,14 @@ def masked(request):
 
 
 def test_candidate_state_equals_jax(masked):
-    """The candidate's uploaded tables are the JAX helper's arrays."""
+    """The candidate's uploaded tables are the JAX helper's arrays in REMAP
+    mode: the masked match tables, its rank, and the live prefix of its
+    planes and ids3 (the JAX package pads their rows to a power of two,
+    zeros past the prefix)."""
     _name, _sc, pal, cand, ctabs = masked
     tabs_args, se, planes, bb, ids3f, del_tok, rank = \
         jhelpers.candidate_runtime_state(pal, cand)
-    assert rank is None
+    np.testing.assert_array_equal(ctabs.rank.numpy(), np.asarray(rank))
     n_cls = len(pal["tabs"].classes)
     fields = np.concatenate([np.asarray(a).reshape(-1)
                              for a in tabs_args[:n_cls]])
@@ -113,17 +119,19 @@ def test_candidate_state_equals_jax(masked):
             ctabs.space_single.numpy(),
             np.asarray(tabs_args[2 * n_cls + 1]).ravel())
     np.testing.assert_array_equal(ctabs.scalars.numpy(), se)
-    np.testing.assert_array_equal(ctabs.meta.numpy(),
-                                  np.asarray(planes).reshape(2, -1))
+    planes = np.asarray(planes).reshape(2, -1)
+    n_c, w = len(cand.tokens), ctabs.meta.shape[1]
+    assert w == ttab.meta_width(n_c)
+    np.testing.assert_array_equal(ctabs.meta.numpy(), planes[:, :w])
+    assert not planes[:, w:].any()
     assert torch.equal(ctabs.entries, ttab.decide_entries(
-        torch.tensor(np.asarray(planes).reshape(2, -1)),
-        ctabs.entries.shape[0]))
+        torch.tensor(planes[:, :w]), ctabs.entries.shape[0]))
     np.testing.assert_array_equal(ctabs.bb.numpy(),
                                   np.asarray(bb).reshape(-1))
-    n_sup = len(pal["v_sup"].tokens)
-    np.testing.assert_array_equal(
-        ctabs.ids3.numpy().view(np.uint32).reshape(-1),
-        np.asarray(ids3f)[:n_sup * 3])
+    ids3f = np.asarray(ids3f).reshape(-1, 3)
+    np.testing.assert_array_equal(ctabs.ids3.numpy().view(np.uint32),
+                                  ids3f[:n_c])
+    assert not ids3f[n_c:].any()
     assert ctabs.delete_token == del_tok
 
 
@@ -135,7 +143,7 @@ def test_masked_match_decide_equal_jax_and_candidate(masked):
     buf[:len(data)] = np.frombuffer(data, np.uint8)
     n = len(data)
     text = torch.from_numpy(buf)
-    tabs_args, se, planes, bb, _ids3f, _del, _rank = \
+    tabs_args, se, planes, bb, _ids3f, _del, rank = \
         jhelpers.candidate_runtime_state(pal, cand)
 
     jm = make_match_kernel(pal["tabs"], interpret=True)(
@@ -145,42 +153,35 @@ def test_masked_match_decide_equal_jax_and_candidate(masked):
     got_m = got_m if ctabs.has_space else (got_m,)
     for g, w in zip(got_m, jm):
         np.testing.assert_array_equal(u32(g), np.asarray(w))
+    # REMAP: the JAX package maps the words through rank (jnp.take, as in
+    # parallel/score.py) and decides on the candidate's planes
+    jr = [jnp.where(w == 0, w, (jnp.take(rank, (w >> 6).astype(jnp.int32))
+                                .astype(jnp.uint32) << 6) | (w & 63))
+          for w in jm]
+    got_r = [remap_matches(g, ctabs.rank) for g in got_m]
+    for g, w in zip(got_r, jr):
+        np.testing.assert_array_equal(u32(g), np.asarray(w))
     jd = make_decide_kernel(v_sup, interpret=True)
-    mb = got_m[1] if ctabs.has_space else None
+    mb = got_r[1] if ctabs.has_space else None
     if ctabs.has_space:
-        want_d = jd(jm[0], jm[1], jnp.asarray(buf), n, planes, bb)
+        want_d = jd(jr[0], jr[1], jnp.asarray(buf), n, planes, bb)
     else:
-        want_d = jd(jm[0], jnp.asarray(buf), n, planes, bb)
-    got_d = decide(got_m[0], mb, text, n, ctabs)
+        want_d = jd(jr[0], jnp.asarray(buf), n, planes, bb)
+    got_d = decide(got_r[0], mb, text, n, ctabs)
     want_d = (port_ctl(want_d[0], want_d[1], ctabs.meta.numpy()), want_d[1])
     for g, w in zip(got_d, want_d):
         np.testing.assert_array_equal(u32(g), np.asarray(w))
 
-    # the same words as on the candidate's own tables, once superset
-    # positions map to candidate indices
+    # the same words as on the candidate's own tables
     own = ttab.upload_tables(cand, hashmatch_tables(cand), "cpu")
-    alive = np.zeros(len(v_sup.tokens), bool)
-    alive[[pal["sup_index"][bytes(t)] for t in cand.tokens]] = True
-    rank = torch.from_numpy(np.where(alive, np.cumsum(alive) - 1, 0))
-
-    def m_to_cand(m):                    # (idx << 6) | len
-        w = m.long() & 0xFFFFFFFF
-        return (rank[w >> 6] << 6) | (w & 63)
-
-    def tok_to_cand(tok):                # idx | w3 << 20, w3 3: literal
-        w = tok.long() & 0xFFFFFFFF
-        idx = (w & 0xFFFFF).clamp(max=len(rank) - 1)
-        lit = ((w >> 20) & 3) == 3
-        return torch.where(lit, w, (w & ~0xFFFFF) | rank[idx])
-
     own_m = match(text, n, own)
     own_m = own_m if own.has_space else (own_m,)
-    for g, o in zip(got_m, own_m):
-        assert torch.equal(m_to_cand(g), o.long() & 0xFFFFFFFF)
+    for g, o in zip(got_r, own_m):
+        assert torch.equal(g, o)
     own_d = decide(own_m[0], own_m[1] if own.has_space else None, text, n,
                    own)
     assert torch.equal(got_d[0], own_d[0])
-    assert torch.equal(tok_to_cand(got_d[1]), own_d[1].long() & 0xFFFFFFFF)
+    assert torch.equal(got_d[1], own_d[1])
     if name != "utf16":
         assert ((u32(got_d[0]) & (1 << 9)) != 0).any(), "no missing byte"
 

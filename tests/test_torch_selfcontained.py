@@ -3,8 +3,12 @@
 ``tokenmonster_tpu``, shown two ways: every import statement of every file
 (relative imports resolved), and a subprocess whose import system refuses
 both names while it imports the whole port, tokenizes through ``load``,
-builds a getalltokens pool and runs one seeded ``train_vocab`` round on
-the device path (``backend="cuda"``, ``device="cpu"``)."""
+builds a getalltokens pool, runs one seeded ``train_vocab`` round on
+the device path (``backend="cuda"``, ``device="cpu"``), exports the run
+with ``python -m tokenmonster_tpu_torch exportvocab`` and tokenizes
+through ``load_multiprocess_safe``, whose server process refuses both
+names too (the refusal is a ``sitecustomize`` on the path every process
+of the run starts with)."""
 
 import ast
 import os
@@ -83,8 +87,17 @@ def test_resolver_sees_relative_imports():
         os.path.join(PKG, "api.py"))
 
 
-CHILD = r'''
-import importlib, logging, os, pkgutil, sys, tempfile
+def test_source_walk_covers_the_shell_surfaces():
+    """The walk above finds every file of the port by itself, the command
+    line, the server, the client and the trainer tools included."""
+    want = {os.path.join(PKG, *p.split("/")) for p in (
+        "__main__.py", "cli.py", "server.py", "client.py",
+        "train/exportvocab.py", "train/tools.py", "train/score_helpers.py")}
+    assert want <= set(_sources())
+
+
+SITE = r'''
+import sys
 
 REFUSED = ("jax", "tokenmonster_tpu")
 
@@ -97,8 +110,16 @@ class Refuse:
 
 
 sys.meta_path.insert(0, Refuse())
+'''
+
+CHILD = r'''
+import importlib, logging, os, pkgutil, runpy, sys, tempfile
+
+REFUSED = ("jax", "tokenmonster_tpu")
+assert any(type(f).__name__ == "Refuse" for f in sys.meta_path)
 import tokenmonster_tpu_torch as pkg
-mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+        if not m.name.endswith(".__main__")]     # importing it runs the CLI
 for m in mods:
     importlib.import_module(m)
 
@@ -130,6 +151,17 @@ train_vocab(corpus, tok, os.path.join(work, "out"),
             TrainConfig(vocab_size=100, workers=2, fast=True, seed=3,
                         max_rounds=1, backend="cuda"), device="cpu")
 assert any(r.startswith("round 1:") for r in rounds), rounds
+sys.argv = ["-m", "exportvocab", "-input", tok, "-output",
+            os.path.join(work, "out.vocab")]
+runpy.run_module("tokenmonster_tpu_torch", run_name="__main__",
+                 alter_sys=True)
+remote = pkg.load_multiprocess_safe(os.path.join(work, "out.vocab"),
+                                    device="cpu")
+local = pkg.load(os.path.join(work, "out.vocab"), device="cpu")
+text = "The quick brown fox jumps over the lazy dog."
+assert list(remote.tokenize(text)) == list(local.tokenize(text))
+remote._server.close()
+assert remote._server._proc.returncode == 0
 bad = [m for m in sys.modules
        if any(m == r or m.startswith(r + ".") for r in REFUSED)]
 assert not bad, bad
@@ -137,10 +169,12 @@ print("ok", len(mods))
 '''
 
 
-def test_port_runs_with_jax_and_the_jax_package_refused():
+def test_port_runs_with_jax_and_the_jax_package_refused(tmp_path):
+    (tmp_path / "sitecustomize.py").write_text(SITE)
     res = subprocess.run([sys.executable, "-c", CHILD], cwd=ROOT,
                          capture_output=True, text=True, timeout=600,
-                         env={**os.environ, "PYTHONPATH": ROOT})
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                             [str(tmp_path), ROOT])})
     assert res.returncode == 0, res.stderr[-4000:]
-    ok, n_mods = res.stdout.split()
+    ok, n_mods = res.stdout.split()[-2:]
     assert ok == "ok" and int(n_mods) >= 20

@@ -22,6 +22,7 @@ from tokenmonster_tpu.train.getalltokens import (get_all_tokens,
                                                  load_tokens_file,
                                                  save_tokens_file)
 from tokenmonster_tpu_torch.ops import tables
+from tokenmonster_tpu_torch.ops.scan import GpuTokenizer
 from tokenmonster_tpu_torch.train import trainvocab as port
 from tokenmonster_tpu_torch.train.trainvocab import GpuCandidateScorer
 
@@ -187,15 +188,30 @@ def test_candidate_that_does_not_fit_raises():
 
 
 def test_superset_of_2_20_entries_raises(monkeypatch):
-    """Token words pack 20-bit dictionary indices; the limit is checked on
-    the built superset, before its placement.  Shown with the limit
-    lowered to this small pool."""
+    """Token words pack 20-bit dictionary indices: a superset of 2^20
+    entries or more arms as any other, in REMAP mode (match tables only,
+    its candidates decided on tables of their own size), and what still
+    raises is a candidate at the limit, and a tokenizer of a vocabulary at
+    the limit, before anything is built.  Shown with the limit lowered to
+    this small pool."""
     assert tables.MAX_ENTRIES == 1 << 20
     v = VOCABS["plain"]()
     monkeypatch.setattr(tables, "MAX_ENTRIES", len(v.tokens))
     sc = _scorer(v, device="cpu")
+    sc.prepare(list(v.tokens))
+    assert sc._sup.tokenizer.tables.match_only
+    assert sc._sup.tokenizer.tables.meta is None
+    cand = candidate(sc, list(v.tokens), drop_sets(v, 3)[1], False)
+    strips = [text_for("plain", v, 1500, seed=2)]
+    got, want = sc.score(cand, strips), native_score(cand, strips)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
     with pytest.raises(NotImplementedError, match="2\\^20"):
-        sc.prepare(list(v.tokens))
+        sc.score(sc.build(list(v.tokens)), strips)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        sc._sup.tokenizer.tokenize(strips[0])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        GpuTokenizer(v, device="cpu")        # raises before any upload
 
 
 SEED_TEXT = (b"The quick brown fox jumps over the lazy dog. The dog sleeps "

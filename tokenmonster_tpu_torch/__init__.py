@@ -6,7 +6,9 @@ follow -> stitch/compact) and of its trainer's candidate scorer and
 distillation loop; the JAX package stays the reference it is tested
 against.  The framework-free layers (``utils/``, ``core/``, ``native/``,
 ``ops/hashmatch.py``, ``train/getalltokens.py`` and its filters, the
-user API and the trainer loop) are this package's own copies, laid out as
+user API, the trainer loop, ``exportvocab``, the token tools, the
+wire-protocol server and client and the command line, ``python -m
+tokenmonster_tpu_torch``) are this package's own copies, laid out as
 in the JAX package: this package imports neither jax nor anything of
 ``tokenmonster_tpu``.
 
@@ -20,9 +22,10 @@ Quick start::
 ``device="cpu"`` runs the kernels' plain PyTorch versions instead.
 """
 
-from .api import Vocab, load
+from .api import Vocab, load, load_multiprocess_safe
 from .ops.scan import GpuTokenizer
 
 __version__ = "0.1.0"
 
-__all__ = ["GpuTokenizer", "Vocab", "load", "__version__"]
+__all__ = ["GpuTokenizer", "Vocab", "load", "load_multiprocess_safe",
+           "__version__"]

@@ -11,9 +11,11 @@ normalized bytes are device candidates, the first call of each dispatch
 geometry is a warm-up, and among candidates the path with the better
 measured rate wins, re-probed every 64 calls; "device" sends every input to
 the device path.  ``last_route`` and ``route_counts`` record the path each
-call took.  Not copied: the multiprocess-safe remote client
-(``load_multiprocess_safe``, ROADMAP.md §1 item 12) and the download of
-prebuilt vocabularies (a local file is required).
+call took.  ``load_multiprocess_safe`` returns the wire-protocol client
+of a shared server subprocess (``client.py``, ``server.py``) that
+tokenizes on the same devices and routes.  Not
+copied: the download of prebuilt vocabularies (a local file is
+required).
 
 Method names, argument conventions and return types follow the reference:
 ``tokenize`` accepts str/bytes or a list thereof and returns numpy uint16/
@@ -93,10 +95,16 @@ def load(path, device="cuda", route="auto") -> "Vocab":
     return Vocab(path, device=device, route=route)
 
 
-def load_multiprocess_safe(path):
-    """The JAX package's shared-server client is not ported."""
-    raise NotImplementedError("load_multiprocess_safe: the remote client is "
-                              "not ported yet (ROADMAP.md §1 item 12)")
+def load_multiprocess_safe(path, device="cuda"):
+    """Load via a shared server subprocess (reference :42-56): the returned
+    ``client.RemoteVocab`` talks the wire protocol, so several processes
+    can share one tokenizer server (``python -m tokenmonster_tpu_torch.cli
+    server``), which tokenizes on ``device`` through this module's routes:
+    "cuda" (the default) sends inputs of ``Vocab.TPU_THRESHOLD`` bytes or
+    more to the kernels, "cpu" to their plain versions.  The server fails
+    to start for "cuda" without a card."""
+    from .client import RemoteVocab
+    return RemoteVocab(Vocab._resolve(path), device=device)
 
 
 def new(yml, device="cuda", route="auto") -> "Vocab":

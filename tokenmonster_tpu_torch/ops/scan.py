@@ -58,6 +58,16 @@ def _bucket(n_lanes: int) -> int:
     return b
 
 
+def remap_matches(m: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """Match words ``(idx << 6) | len`` of a trainer superset's tables with
+    each idx replaced by ``rank[idx]``, the candidate's index of it; 0 (no
+    match) stays 0, and alive-masked tables never match a dead index.  As
+    ``tokenmonster_tpu/parallel/score.py`` (``_remap``) does before decide:
+    a gather, which the JAX package does outside its kernels too."""
+    ranked = (rank.index_select(0, m >> 6) << 6) | (m & 63)
+    return torch.where(m == 0, m, ranked)
+
+
 def check_device(device) -> torch.device:
     """``device`` as a torch.device; raises for "cuda" without a card."""
     device = torch.device(device)
@@ -83,11 +93,12 @@ class GpuTokenizer:
     package's) shares one placement build; None builds it here."""
 
     def __init__(self, vocab, chunk: int = 2048, device="cuda",
-                 hashmatch_tables=None):
+                 hashmatch_tables=None, match_only: bool = False):
         self.device = device = check_device(device)
         self.vocab = vocab
         self.chunk = chunk
-        self.tables = upload_tables(vocab, hashmatch_tables, device=device)
+        self.tables = upload_tables(vocab, hashmatch_tables, device=device,
+                                    match_only=match_only)
         self.last_mode = None
         self.fallbacks = {"missing_byte": 0, "junction": 0}
 
@@ -155,11 +166,16 @@ class GpuTokenizer:
     def _records(self, buf, n: int, tabs, chunk: int, overlap: int,
                  n_lanes: int, t_rec: int):
         """Match, decide and follow on ``tabs``, enqueued: the (recs, toks,
-        done_all) of lanes that each scan ``chunk + overlap`` bytes."""
+        done_all) of lanes that each scan ``chunk + overlap`` bytes.  Tables
+        with a ``rank`` (a trainer candidate's) have their match words
+        mapped to candidate indices between match and decide."""
         if tabs.has_space:
             m, mb = match(buf, n, tabs)
         else:
             m, mb = match(buf, n, tabs), None
+        if tabs.rank is not None:
+            m = remap_matches(m, tabs.rank)
+            mb = None if mb is None else remap_matches(mb, tabs.rank)
         ctl, tok = decide(m, mb, buf, n, tabs)
         return follow(ctl, tok, n, chunk, n_lanes, overlap, t_rec)
 
@@ -226,6 +242,11 @@ class GpuTokenizer:
         (an owned junction found no shared state) or "missing_byte" (a kept
         record emits nothing).  A fast-window overflow retries once on the
         full window."""
+        if self.tables.match_only:
+            raise NotImplementedError(
+                "match-only tables (a trainer superset's) have no decide "
+                "tables: vocabularies of 2^20 entries or more tokenize on "
+                "the host (ROADMAP.md §1 item 14)")
         outs = self._run_staged(staged, full, self.tables, self._compact, {})
         k = len(outs)
         meta = torch.stack([torch.stack([o[j].long() for o in outs])

@@ -7,8 +7,10 @@ The numpy arrays are the JAX package's: the hash-match planes come from
 placement), and the few numpy helpers that live in jax-importing modules
 there are copied below, each naming its original.
 ``tests/test_torch_tables.py`` holds every copy equal to its original.
-``DeviceTables`` carries them to a device as buffers; ``CandidateTables``
-is one trainer candidate's masked view of a superset's.
+``DeviceTables`` carries them to a device as buffers (a trainer superset
+only its match tables); ``CandidateTables`` is one trainer candidate's
+masked view of a superset's, in REMAP mode: its own tables at its own
+indices, with ``rank`` mapping superset indices to them.
 ``from_reference_tables`` takes a placement built by the JAX package
 (its ``HashMatchTables``) into this package's class, field by field.
 """
@@ -23,8 +25,8 @@ import torch
 from torch import nn
 
 from ..core.tokenmeta import DOES_NOT_EXIST
-from .hashmatch import (SEED, ClassTable, HashMatchTables, build_hashmatch,
-                        compose_fields, disp_plane)
+from .hashmatch import (IDX_BITS, SEED, ClassTable, HashMatchTables,
+                        build_hashmatch, compose_fields, disp_plane)
 
 # Per-class descriptor layout: the D_* enum of csrc/tm_kernels.cuh.
 (D_LEN, D_S, D_BBITS, D_SALT, D_NF, D_FOFF, D_STRIDE, D_DOFF, D_NOVF,
@@ -135,7 +137,7 @@ def build_meta_planes(vocab):
           | (vocab.len1.astype(np.int64) << 16)
           | (vocab.len2.astype(np.int64) << 24))
     f1 = af1 | (anw1 << 8) | (af2 << 16) | (anw2 << 24)
-    R = max(8, -(-n // 128 // 8) * 8)
+    R = meta_width(n) // 128
     planes = np.zeros((2, R, 128), np.int32)
     for j, f in enumerate((f0, f1)):
         p = np.zeros(R * 128, np.int32)
@@ -328,15 +330,24 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _vocab_config(tabs, vocab) -> None:
-    """The per-vocabulary kernel scalars: literal ids and row layout."""
+def meta_width(n: int) -> int:
+    """Dictionary slots of ``build_meta_planes`` for ``n`` tokens: rows of
+    128, a multiple of 8 rows, at least 8."""
+    return max(8, -(-n // 128 // 8) * 8) * 128
+
+
+def _vocab_config(tabs, vocab, literals: bool = True) -> None:
+    """The per-vocabulary kernel scalars: literal ids and row layout.
+    ``literals``: check that the unk and delete ids fit the decide
+    kernel's literal field (not for match-only superset tables, whose
+    candidates bring their own)."""
     tabs.lil_off = 2 if vocab.charset == 2 else 1
     tabs.has_delete = vocab.delete_token != DOES_NOT_EXIST
     tabs.has_unk = vocab.unk_token != DOES_NOT_EXIST
     tabs.unk_token = int(vocab.unk_token) & 0xFFFFFF
     tabs.delete_token = int(vocab.delete_token) & 0xFFFFFF
     for name, tok in (("unk", tabs.unk_token), ("delete", tabs.delete_token)):
-        if getattr(tabs, f"has_{name}") and tok >= MAX_ENTRIES:
+        if literals and getattr(tabs, f"has_{name}") and tok >= MAX_ENTRIES:
             raise NotImplementedError(
                 f"{name} id {tok} does not fit the 20-bit literal field")
     if tabs.has_space != tabs.has_delete:
@@ -354,18 +365,31 @@ class DeviceTables(nn.Module):
     Decide: the two meta planes (``meta``, what the plain version
     indexes), the kernel's table built from them (``decide_entries``) and
     the begin-byte table.  Id resolution:
-    ``ids3``.  All integer buffers hold u32 bit patterns as int32."""
+    ``ids3``.  All integer buffers hold u32 bit patterns as int32.
 
-    def __init__(self, vocab, tables):
+    ``match_only`` (a trainer superset) carries the match tables only:
+    ``meta``, ``entries``, ``bb`` and ``ids3`` are None, and its
+    candidates bring their own at candidate size (``upload_tables``
+    refuses any other vocabulary of MAX_ENTRIES entries or more).  The
+    indices must fit the placement's index fields (IDX_BITS bits of
+    idx+1), or the constructor raises."""
+
+    def __init__(self, vocab, tables, match_only: bool = False):
         super().__init__()
         tables = from_reference_tables(tables)
-        if len(vocab.tokens) >= MAX_ENTRIES:
+        n = len(vocab.tokens)
+        self.n_entries = n
+        self.match_only = match_only
+        self.rank = None              # the superset's own indices
+        n_cls = len(tables.classes)
+        self.idx1_bits = tables.classes[0].idx1_bits if n_cls else 21
+        if n + 1 >= 1 << IDX_BITS or self.idx1_bits > IDX_BITS:
             raise NotImplementedError(
-                "token words pack 20-bit dictionary indices: vocabularies "
-                "of 2^20 entries or more are not supported yet")
+                f"{n} dictionary entries: the hash placement packs idx+1 in "
+                f"{IDX_BITS}-bit index fields, so it holds at most "
+                f"{(1 << IDX_BITS) - 2} entries")
         flat = flat_tables(tables)
         desc, len_cls, fields, disp, ovf = class_descriptors(tables, flat)
-        n_cls = len(tables.classes)
         self.register_buffer("fields", _t(fields))
         self.register_buffer("disp", _t(disp))
         self.register_buffer("single", _t(flat[2 * n_cls].reshape(-1)))
@@ -378,41 +402,56 @@ class DeviceTables(nn.Module):
         self.register_buffer("ovf_keys", _t(ovf))
         filt, self.filt_log2 = key_filter(tables)
         self.register_buffer("filt", _t(filt))
-        planes, bb = build_meta_planes(vocab)
-        check_alternative_lengths(planes)
-        self.register_buffer("meta", _t(planes.reshape(2, -1)))
-        self.register_buffer("entries", decide_entries(
-            self.meta, 2 if vocab.delete_token != DOES_NOT_EXIST else 1))
-        self.register_buffer("bb", _t(bb.reshape(-1).astype(np.int32)))
-        self.register_buffer("ids3", _t(ids3(vocab).view(np.int32)))
+        if self.match_only:
+            for name in ("meta", "entries", "bb", "ids3"):
+                self.register_buffer(name, None)
+        else:
+            planes, bb = build_meta_planes(vocab)
+            check_alternative_lengths(planes)
+            self.register_buffer("meta", _t(planes.reshape(2, -1)))
+            self.register_buffer("entries", decide_entries(
+                self.meta, 2 if vocab.delete_token != DOES_NOT_EXIST else 1))
+            self.register_buffer("bb", _t(bb.reshape(-1).astype(np.int32)))
+            self.register_buffer("ids3", _t(ids3(vocab).view(np.int32)))
 
         # host-side geometry: kernel scalars and the plain versions' loops
         self.classes = tables.classes
         self.max_len = len(len_cls) - 1
-        self.idx1_bits = tables.classes[0].idx1_bits if n_cls else 21
         self.has_space = bool(tables.has_space)
-        _vocab_config(self, vocab)
+        _vocab_config(self, vocab, literals=not self.match_only)
 
 
 class CandidateTables:
-    """A candidate vocabulary seen through its superset's ``DeviceTables``:
-    the superset's hash placement with the candidate's dead tokens masked
-    out, so the match and decide kernels run the candidate at superset
-    dictionary positions with no placement of its own (the trainer's
-    per-candidate masking; ``tokenmonster_tpu/train/score_helpers.py``).
+    """A candidate vocabulary seen through its superset's match-only
+    ``DeviceTables``, in the JAX package's REMAP mode: the superset's hash
+    placement with the candidate's dead tokens masked out, so the match
+    kernel runs the candidate with no placement of its own (the trainer's
+    per-candidate masking; ``tokenmonster_tpu/train/score_helpers.py``),
+    and decide, follow and id resolution on tables of the candidate's own
+    size.
 
     Per candidate, uploaded to the superset's device: the alive-masked
-    ``fields``, ``single``, ``space_single`` and ``scalars``; the
-    candidate's ``meta`` planes and ``ids3`` at superset positions and
-    its ``bb`` (its ``entries`` are built there from the planes); its unk and delete ids.  Shared with the superset and never
-    written: ``disp``, ``desc``, ``len_cls``, ``ovf_keys``, the key filter
-    and the host geometry.  Every per-candidate tensor has its superset counterpart's
-    shape and type, or the constructor raises: the geometry never changes
-    between candidates."""
+    ``fields``, ``single``, ``space_single`` and ``scalars``, with their
+    superset counterparts' shapes and types; its ``meta`` planes
+    (``meta_width(n)`` slots), ``ids3`` (n rows) and ``bb``, at candidate
+    indices (its ``entries`` are built there from the planes); ``rank``,
+    int32 per superset index, each live index's candidate index, through
+    which the tokenizer maps every match word before decide
+    (``ops/scan.py::remap_matches``); its unk and delete ids.  Shared with
+    the superset and never written: ``disp``, ``desc``, ``len_cls``,
+    ``ovf_keys``, the key filter and the host geometry.  Any other shape
+    raises ValueError; a candidate of MAX_ENTRIES entries or more raises
+    NotImplementedError, since token words pack 20-bit indices."""
 
     def __init__(self, base: DeviceTables, vocab, flat: tuple,
                  scalars: np.ndarray, planes: np.ndarray, bb: np.ndarray,
-                 ids3_sup: np.ndarray):
+                 ids3_c: np.ndarray, rank: np.ndarray):
+        n = len(vocab.tokens)
+        if n >= MAX_ENTRIES:
+            raise NotImplementedError(
+                f"candidate of {n} entries: token words pack 20-bit "
+                "dictionary indices, so candidates of 2^20 entries or more "
+                "are not supported")
         for name in ("disp", "desc", "len_cls", "ovf_keys", "filt",
                      "filt_log2", "classes", "max_len", "idx1_bits",
                      "has_space"):
@@ -426,17 +465,23 @@ class CandidateTables:
                "space_single": space.reshape(-1), "scalars": scalars,
                "meta": planes.reshape(2, -1),
                "bb": bb.reshape(-1).astype(np.int32),
-               "ids3": ids3_sup.view(np.int32)}
+               "ids3": ids3_c.view(np.int32), "rank": rank}
+        want = {k: (tuple(getattr(base, k).shape), getattr(base, k).dtype)
+                for k in ("fields", "single", "space_single", "scalars")}
+        want.update(meta=((2, meta_width(n)), torch.int32),
+                    bb=((256,), torch.int32), ids3=((n, 3), torch.int32),
+                    rank=((base.n_entries,), torch.int32))
         for name, arr in own.items():
-            sup = getattr(base, name)
             t = _t(arr)
-            if t.shape != sup.shape or t.dtype != sup.dtype:
+            shape, dtype = want[name]
+            if tuple(t.shape) != shape or t.dtype != dtype:
                 raise ValueError(
                     f"{name}: candidate {t.dtype}{tuple(t.shape)} differs "
-                    f"from the superset's {sup.dtype}{tuple(sup.shape)}")
-            setattr(self, name, t.to(sup.device))
+                    f"from the required {dtype}{shape}")
+            setattr(self, name, t.to(base.fields.device))
         check_alternative_lengths(planes)
-        self.entries = decide_entries(self.meta, base.entries.shape[0])
+        self.entries = decide_entries(
+            self.meta, 2 if vocab.delete_token != DOES_NOT_EXIST else 1)
         _vocab_config(self, vocab)
 
 
@@ -448,13 +493,23 @@ def space_prefix(vocab) -> bytes | None:
     return b" \x00" if vocab.charset == 2 else b" "
 
 
-def upload_tables(vocab, hashmatch_tables=None, device="cpu") -> DeviceTables:
-    """Carry a vocabulary's kernel tables to ``device``.  The hash-match
-    tables are a numpy placement (``build_hashmatch``): pass one, this
-    package's or the JAX package's (``from_reference_tables``), to share
-    one build, or leave None to build it here."""
+def upload_tables(vocab, hashmatch_tables=None, device="cpu",
+                  match_only: bool = False) -> DeviceTables:
+    """Carry a vocabulary's kernel tables (``match_only``: its match
+    tables) to ``device``.  The hash-match tables are a numpy placement
+    (``build_hashmatch``): pass one, this package's or the JAX package's
+    (``from_reference_tables``), to share one build, or leave None to
+    build it here.  A vocabulary of MAX_ENTRIES entries or more raises
+    unless ``match_only``, before anything is built: token words pack
+    20-bit dictionary indices."""
+    if len(vocab.tokens) >= MAX_ENTRIES and not match_only:
+        raise NotImplementedError(
+            f"vocabulary of {len(vocab.tokens)} entries: token words pack "
+            "20-bit dictionary indices, so vocabularies of 2^20 entries or "
+            "more tokenize on the host (ROADMAP.md §1 item 14); the trainer "
+            "scores their candidates in REMAP mode")
     if hashmatch_tables is None:
         hashmatch_tables = build_hashmatch(vocab.tokens,
                                            space_prefix=space_prefix(vocab))
-    return DeviceTables(vocab, from_reference_tables(hashmatch_tables)).to(
-        device)
+    return DeviceTables(vocab, from_reference_tables(hashmatch_tables),
+                        match_only).to(device)

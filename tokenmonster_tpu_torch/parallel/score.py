@@ -4,7 +4,8 @@ Port of ``tokenmonster_tpu/parallel/score.py::make_pallas_score_step``
 without its ``shard_map``/``psum`` (one card, one process): each corpus
 strip goes through ``GpuTokenizer``'s planning, staging and dispatch chain
 (match, decide and follow on the candidate's ``CandidateTables``, with
-``start_next`` carried on the device), whose epilogue here is
+``start_next`` carried on the device; REMAP mode: the match words are
+mapped to candidate indices before decide), whose epilogue here is
 ``device_stitch_score``: chars-covered scores per candidate id over the
 spliced record stream, the token count and the missing-byte mask, as the
 native contiguous scorer (``tm_tokenize_score``) counts them.  Scores,
@@ -36,9 +37,10 @@ from ..ops.tables import CandidateTables
 
 def score_epilogue(tabs: CandidateTables, n_ids: int, chunk: int):
     """The dispatch epilogue that scores ``tabs``'s candidate: token words
-    resolve to candidate ids through ``ids3`` (one gather per record slot,
-    as ``make_pallas_score_step`` does; slots that emit nothing are masked
-    in ``device_stitch_score``), then the scores of the dispatch."""
+    resolve to candidate ids through the candidate-sized ``ids3`` (one
+    gather per record slot, as ``make_pallas_score_step`` does; slots that
+    emit nothing are masked in ``device_stitch_score``), then the scores
+    of the dispatch."""
     ids3 = tabs.ids3.long().reshape(-1) & 0xFFFFFFFF
 
     def epilogue(recs, toks, buf, start0, last_lane: int, final: bool):

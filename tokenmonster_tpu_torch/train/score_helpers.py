@@ -1,16 +1,19 @@
 """Per-candidate runtime state of the trainer's device scorer.
 
 Port of ``tokenmonster_tpu/train/score_helpers.py::candidate_runtime_state``
-(which imports jax inside), without its REMAP mode: the superset's hash
-placement and kernel tables are built once (``Superset``), and each
-candidate vocabulary, a subset of the superset, becomes runtime tables in
-the superset's geometry: match tables with dead tokens masked, and the
-candidate's metadata planes and emitted ids at superset dictionary
-positions.  Both dictionaries sort with the same comparator, so a
-candidate's dictionary index is the rank of its superset position among
-the live ones; that is checked for every candidate.  The masking runs in
-host numpy through ``hashmatch.compose_fields(c, alive)``, as in the JAX
-package.
+(which imports jax inside) in its REMAP mode: the superset's hash
+placement and match tables are built once (``Superset``), and each
+candidate vocabulary, a subset of the superset, becomes runtime tables:
+the superset's match tables with dead tokens masked, and the candidate's
+metadata planes and emitted ids at its own indices, with the alive-rank
+of every superset index.  Both dictionaries sort with the same
+comparator, so a candidate's dictionary index is the rank of its
+superset position among the live ones; that is checked for every
+candidate.  The masking runs in host numpy through
+``hashmatch.compose_fields(c, alive)``, as in the JAX package.  The JAX
+package pads a REMAP candidate's planes and ids to a power of two of rows
+for its compiled shapes, and keeps a second mode that places them at
+superset positions; here they keep their own size, in the one mode.
 """
 
 from __future__ import annotations
@@ -23,13 +26,13 @@ from ..core.tokenmeta import DOES_NOT_EXIST
 from ..ops.hashmatch import HashMatchTables
 from ..ops.scan import GpuTokenizer
 from ..ops.tables import (CandidateTables, build_meta_planes, flat_tables,
-                          smem_scalars)
+                          ids3, smem_scalars)
 
 
 @dataclass(frozen=True)
 class Superset:
     """A prepared superset: its vocabulary, the dictionary index of each
-    token, its hash placement, and the tokenizer that holds its kernel
+    token, its hash placement, and the tokenizer that holds its match
     tables on the scoring device and runs the dispatch chain."""
     vocab: object
     index: dict
@@ -38,13 +41,13 @@ class Superset:
 
 
 def candidate_runtime_state(sup: Superset, cand) -> CandidateTables:
-    """The candidate's kernel tables in the superset's geometry, on the
-    superset's device: alive-masked match tables, the candidate's meta
-    planes, begin-byte table and ids3 at superset positions, and its
-    delete id (``.delete_token``).  Raises ValueError for a candidate that
-    does not fit the superset: another delete config, charset or unk id, a
-    token the superset lacks, or a dictionary order the superset's does not
-    give."""
+    """The candidate's kernel tables, on the superset's device:
+    alive-masked match tables, the candidate's meta planes, begin-byte
+    table and ids3 at its own indices, ``rank``, the alive-rank of each
+    superset index (``cumsum(alive) - 1``, 0 where it is dead), and its
+    delete id (``.delete_token``).  Raises ValueError for a candidate that does not fit the superset:
+    another delete config, charset or unk id, a token the superset lacks,
+    or a dictionary order the superset's does not give."""
     v_sup = sup.vocab
     if ((cand.delete_token != DOES_NOT_EXIST)
             != (v_sup.delete_token != DOES_NOT_EXIST)
@@ -71,14 +74,10 @@ def candidate_runtime_state(sup: Superset, cand) -> CandidateTables:
     alive = np.zeros(len(v_sup.tokens), bool)
     alive[pos] = True
 
-    base = sup.tokenizer.tables
-    planes_c, bb = build_meta_planes(cand)
-    planes = np.zeros((2, base.meta.shape[1]), np.int32)
-    planes[:, pos] = planes_c.reshape(2, -1)[:, :n_c]
-    ids3 = np.zeros(tuple(base.ids3.shape), np.uint32)
-    ids3[pos, 0] = cand.id
-    ids3[pos, 1] = cand.id1
-    ids3[pos, 2] = cand.id2
-    return CandidateTables(base, cand, flat_tables(sup.hashmatch, alive),
-                           smem_scalars(sup.hashmatch, alive), planes, bb,
-                           ids3)
+    rank = (np.cumsum(alive) - 1).astype(np.int32)
+    rank[~alive] = 0
+    planes, bb = build_meta_planes(cand)
+    return CandidateTables(sup.tokenizer.tables, cand,
+                           flat_tables(sup.hashmatch, alive),
+                           smem_scalars(sup.hashmatch, alive),
+                           planes.reshape(2, -1), bb, ids3(cand), rank)

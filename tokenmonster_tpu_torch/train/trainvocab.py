@@ -8,8 +8,14 @@ scorers:
   - "cuda":   candidates scored on the device by ``GpuCandidateScorer``
     (a subclass of ``CandidateScorer``), armed once on a superset of every
     token the run can use.
-The JAX package's "tpu" backend (its Pallas fast path, REMAP mode and VMEM
-arming) is not copied: asking for it raises (ROADMAP.md §1 item 10).
+The JAX package's "tpu" backend (its mesh-sharded Pallas fast path and
+VMEM arming) is not copied: asking for it raises (ROADMAP.md §1 item 10).
+Its REMAP mode is copied as the one mode of every superset (the JAX
+package arms it only for supersets whose planes its kernels cannot
+hold): each candidate is matched on the superset's masked match tables
+and decided, followed and resolved on tables of its own size, so
+supersets of 2^20 entries or more (the reference configuration's pool of
+about 800,000 candidates expands to about 1.2 M) score as any other.
 
     from tokenmonster_tpu_torch.train.trainvocab import TrainConfig, train_vocab
     best = train_vocab(data, "pool.tok", "results/",
@@ -47,7 +53,7 @@ from ..core import capcode as cc
 from ..core.normalize import Normalizer
 from ..core.vocab import Vocab, normalize_and_capcode
 from ..utils.runes import decode_utf8
-from ..core.tokenmeta import is_alphanum_tm
+from ..core.tokenmeta import DOES_NOT_EXIST, is_alphanum_tm
 from ..ops import tables
 from ..ops.hashmatch import build_hashmatch
 from ..ops.scan import GpuTokenizer, check_device
@@ -145,7 +151,8 @@ class GpuCandidateScorer(CandidateScorer):
     CUDA ``device``, their plain PyTorch versions on ``"cpu"``.
 
     ``prepare(superset_tokens)`` builds the superset vocabulary and its
-    hash placement once; ``score(cand, datasets)`` then scores any
+    hash placement once, in REMAP mode; ``score(cand, datasets)`` then
+    scores any
     candidate built from a subset of it, with ``CandidateScorer.score``'s
     contract.  A candidate that does not fit the superset raises.  Every
     byte is scored on the device: a junction whose lanes share no state is
@@ -182,23 +189,25 @@ class GpuCandidateScorer(CandidateScorer):
         device.  ``hashmatch_tables``: a placement of that vocabulary to
         share one build (this package's ``HashMatchTables`` or the JAX
         package's, converted by ``tables.from_reference_tables``); None
-        builds it here."""
+        builds it here.  The superset is armed in REMAP mode: its match
+        tables only, masked per candidate, each match word mapped to the
+        candidate's index, and decide, follow and ids on candidate-sized
+        tables, so token words' 20-bit indices hold supersets of 2^20
+        entries or more too."""
         v_sup = self.build(list(superset_tokens))
-        if len(v_sup.tokens) >= tables.MAX_ENTRIES:
-            raise NotImplementedError(
-                f"superset of {len(v_sup.tokens)} entries: token words pack "
-                "20-bit dictionary indices, so supersets of 2^20 entries or "
-                "more are not supported yet")
         if hashmatch_tables is None:
             hashmatch_tables = build_hashmatch(
                 v_sup.tokens, space_prefix=tables.space_prefix(v_sup))
         hashmatch_tables = tables.from_reference_tables(hashmatch_tables)
         tk = GpuTokenizer(v_sup, chunk=CHUNK, device=self.device,
-                          hashmatch_tables=hashmatch_tables)
+                          hashmatch_tables=hashmatch_tables, match_only=True)
         self._sup = Superset(
             vocab=v_sup,
             index={bytes(t): i for i, t in enumerate(v_sup.tokens)},
             hashmatch=hashmatch_tables, tokenizer=tk)
+        log.info("cuda trainer armed on %s: superset %d tokens, delete=%s, "
+                 "remap=True", self.device, len(v_sup.tokens),
+                 v_sup.delete_token != DOES_NOT_EXIST)
 
     def score(self, cand, datasets: list[bytes]):
         """(scores int64 [n_ids], tokens in text, set of missing byte

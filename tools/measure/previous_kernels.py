@@ -42,7 +42,9 @@ tokenizer on the same text as a reading of the host's speed, and on the
 smoke's trainer pool the host masking (``candidate_runtime_state``, upload
 and table build included) and the device score (``score_strips``) of
 ``CANDIDATES`` seeded 32,000-id candidates, wall milliseconds ending in a
-synchronise: medians, and the median of the paired differences.
+synchronise: medians, and the median of the paired differences.  Each
+tree also runs ``ROUND_RUNS`` seeded two-round ``train_vocab`` runs on the
+smoke's trainer configuration: seconds per round after the arm.
 
 Each prints the card's name and power limit, and as its last line one JSON
 object of the times.  The previous designs' argument structs are copied
@@ -65,9 +67,9 @@ OUT = os.path.join(ROOT, "build", "previous_kernels")
 SOURCES = ("tm_kernels.cu", "tm_kernels.cuh")
 PREVIOUS = {"match": "8033868", "decide": "f9d4c8f", "follow": "8033868",
             "compact": "f9d4c8f"}
-PARENT = "f9d4c8f"            # the tree ``paths`` compares with
+PARENT = "f35d910"            # the tree ``paths`` compares with
 PARENT_FILES = ("tokenmonster_tpu_torch",)
-CHAIN_RUNS, E2E_RUNS, CANDIDATES = 60, 12, 24
+CHAIN_RUNS, E2E_RUNS, CANDIDATES, ROUND_RUNS = 60, 12, 24, 2
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 
@@ -223,9 +225,12 @@ def triples(prev: Previous, buf, n: int, tabs, chunk: int, lanes: int,
     from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
     from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
     from tokenmonster_tpu_torch.ops.match import match, match_plain
-    from tokenmonster_tpu_torch.ops.scan import OVERLAP_SCAN
+    from tokenmonster_tpu_torch.ops.scan import OVERLAP_SCAN, remap_matches
     mm = match(buf, n, tabs)
     m, mb = mm if tabs.has_space else (mm, None)
+    if tabs.rank is not None:            # a trainer candidate's (REMAP)
+        m = remap_matches(m, tabs.rank)
+        mb = None if mb is None else remap_matches(mb, tabs.rank)
     ctl, tok = decide(m, mb, buf, n, tabs)
     meta = tabs.meta.contiguous()
     args = (ctl, tok, n, chunk, lanes, OVERLAP_SCAN, t_rec)
@@ -390,6 +395,8 @@ class _Tree:
 
         def sub(name):
             return importlib.import_module(f"{alias}.{name}")
+        self.smoke, self.dev = smoke, dev
+        self.train_raw, self.tok_path = train_raw, tok_path
         pkg = sys.modules[alias]
         core = sub("core.vocab").Vocab.load(os.path.join(ROOT, smoke.VOCAB))
         self.raw = raw
@@ -402,7 +409,7 @@ class _Tree:
         self.staged = self.tk.stage(self.norm)
         self.tk.tokenize_staged(self.staged)
 
-        port = sub("train.trainvocab")
+        self.port = port = sub("train.trainvocab")
         dic = sub("train.getalltokens").load_tokens_file(tok_path)
         capcode, norm_flag = dic["using_capcode"], dic["norm_flag"]
         self.text = sub("core.vocab").normalize_and_capcode(
@@ -419,6 +426,37 @@ class _Tree:
                                                       cc.WORD_TOKEN)})
         self._mask = sub("train.score_helpers").candidate_runtime_state
         self._score = sub("parallel.score").score_strips
+
+    def round_s(self, work: str) -> float:
+        """Seconds per round of a seeded two-round ``train_vocab`` on the
+        smoke's trainer configuration, the superset's arm left out."""
+        import time
+        from unittest import mock
+
+        import torch
+        port = self.port
+        arm = []
+
+        class Timed(port.GpuCandidateScorer):
+            def prepare(self, *args, **kw):
+                t0 = time.perf_counter()
+                super().prepare(*args, **kw)
+                torch.cuda.synchronize()
+                arm.append(time.perf_counter() - t0)
+
+        smoke, rounds = self.smoke, 2
+        cfg = port.TrainConfig(vocab_size=smoke.TRAIN_VOCAB, workers=2,
+                               fast=True, seed=smoke.TRAIN_SEED,
+                               max_rounds=rounds, backend="cuda")
+        out = tempfile.mkdtemp(dir=work)
+        t0 = time.perf_counter()
+        with mock.patch.object(port, "GpuCandidateScorer", Timed):
+            port.train_vocab(self.train_raw, self.tok_path, out, cfg,
+                             device=self.dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        shutil.rmtree(out, ignore_errors=True)
+        return (wall - sum(arm)) / rounds
 
     def chain(self):
         tk = self.tk
@@ -484,39 +522,46 @@ def time_paths() -> int:
                                   tok_path, train_raw, dev),
                  "parent": _Tree("tm_parent", smoke, raw, tok_path,
                                  train_raw, dev)}
+        print(f"the trees armed: {len(trees['current'].norm)} normalized "
+              f"bytes staged, a superset of "
+              f"{len(trees['current'].sc._sup.vocab.tokens)} entries",
+              flush=True)
+
+        runs = {k: {"current": [], "parent": []}
+                for k in ("chain_ms", "e2e_ms", "native_ms", "mask_ms",
+                          "score_ms", "round_s")}
+
+        def turns(i: int) -> list:
+            order = ["current", "parent"]
+            return order if i % 2 == 0 else order[::-1]
+
+        for key, fn, count in (("chain_ms", "chain", CHAIN_RUNS),
+                               ("e2e_ms", "e2e", E2E_RUNS),
+                               ("native_ms", "host", E2E_RUNS)):
+            for i in range(count):
+                for which in turns(i):
+                    runs[key][which].append(
+                        wall_ms(getattr(trees[which], fn)))
+        cur = trees["current"]
+        multi = [t for t in cur.pool if len(t) > 1]
+        rng = random.Random(smoke.TRAIN_SEED)
+        for i in range(CANDIDATES + 1):           # the first one warms up
+            rng.shuffle(multi)
+            tokens = cur.singles + multi[:smoke.TRAIN_VOCAB
+                                         - len(cur.singles)]
+            for which in turns(i):
+                mask, score = trees[which].candidate(tokens, wall_ms)
+                if i:
+                    runs["mask_ms"][which].append(mask)
+                    runs["score_ms"][which].append(score)
+        for i in range(ROUND_RUNS):
+            for which in turns(i):
+                runs["round_s"][which].append(trees[which].round_s(work))
+        for tree in trees.values():
+            smoke.require(tree.tk.host_fallbacks == 0,
+                          "a timed call fell back")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"both trees armed: {len(trees['current'].norm)} normalized "
-          f"bytes staged, a superset of "
-          f"{len(trees['current'].sc._sup.vocab.tokens)} entries", flush=True)
-
-    runs = {k: {"current": [], "parent": []}
-            for k in ("chain_ms", "e2e_ms", "native_ms", "mask_ms",
-                      "score_ms")}
-
-    def turns(i: int) -> list:
-        order = ["current", "parent"]
-        return order if i % 2 == 0 else order[::-1]
-
-    for key, fn, count in (("chain_ms", "chain", CHAIN_RUNS),
-                           ("e2e_ms", "e2e", E2E_RUNS),
-                           ("native_ms", "host", E2E_RUNS)):
-        for i in range(count):
-            for which in turns(i):
-                runs[key][which].append(wall_ms(getattr(trees[which], fn)))
-    cur = trees["current"]
-    multi = [t for t in cur.pool if len(t) > 1]
-    rng = random.Random(smoke.TRAIN_SEED)
-    for i in range(CANDIDATES + 1):               # the first one warms up
-        rng.shuffle(multi)
-        tokens = cur.singles + multi[:smoke.TRAIN_VOCAB - len(cur.singles)]
-        for which in turns(i):
-            mask, score = trees[which].candidate(tokens, wall_ms)
-            if i:
-                runs["mask_ms"][which].append(mask)
-                runs["score_ms"][which].append(score)
-    for tree in trees.values():
-        smoke.require(tree.tk.host_fallbacks == 0, "a timed call fell back")
 
     result = {"card": card, "parent": PARENT, "runs": runs}
     sizes = {"chain_ms": len(cur.norm), "e2e_ms": len(raw),
