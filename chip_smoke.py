@@ -22,8 +22,14 @@ versions, ``GpuCandidateScorer.score`` against the native scorer on the
 whole text, the junction repair on a forced run, and two seeded rounds
 of the port's ``train_vocab`` on the card against its native backend
 (every scored candidate, the deletions of each round, the files
-written), with times.  The reference-scale phase does the same on a pool
-whose superset holds more than 2^20 entries.  The pipeline phase runs
+written), with times.  Then getalltokens of that configuration with
+``TM_GAT_DEVICE=1`` (the window sort on the card; the ``.tok`` byte for
+byte the host sort's; each micro-chunk's sort timed against the native
+sort in turns), and the same two rounds with the scorer over two slots of
+the card and as two gloo processes on it (rounds, files and every
+candidate's scores equal; every trainer kernel launched in each
+process).  The reference-scale phase does the same as the trainer phase,
+for one round, on a pool whose superset holds more than 2^20 entries.  The pipeline phase runs
 getalltokens, trainvocab (cuda against native) and exportvocab from the
 shell, then serves the exported vocabulary through ``load(...,
 device="cuda")`` and ``load_multiprocess_safe`` (its server on the
@@ -37,6 +43,7 @@ repository around it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import os
@@ -79,7 +86,7 @@ BIG_MIN_OCCUR = 7             # lowered from the source's 60 so that this
                               # 803,091 and 1,212,993)
 BIG_ENTRIES = 1 << 20         # the superset must hold more entries
 BIG_CANDIDATES = 3
-BIG_ROUNDS = 2
+BIG_ROUNDS = 1
 CLI_ROUNDS = 2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The least time the card could take for a kernel's work: its bytes (each
@@ -372,9 +379,10 @@ def trainer_inputs(dev, card: str, work: str):
     counter, char_table, header = get_all_tokens(
         raw, "balanced", charset=1, normalization="nfd", using_capcode=2,
         min_occur_total=TRAIN_MIN_OCCUR)
+    gat_s = time.perf_counter() - t0
     print(f"pool: {len(counter)} candidates from {len(raw)} bytes of "
           f"standard-library text (balanced, capcode 2, nfd, min occur "
-          f"{TRAIN_MIN_OCCUR}) in {time.perf_counter() - t0:.1f} s")
+          f"{TRAIN_MIN_OCCUR}) in {gat_s:.1f} s (host sort)")
     require(TRAIN_POOL[0] <= len(counter) <= TRAIN_POOL[1],
             f"pool of {len(counter)} outside {TRAIN_POOL}")
     tok_path = os.path.join(work, "pool.tok")
@@ -412,7 +420,8 @@ def trainer_inputs(dev, card: str, work: str):
     buf, n, _last = bufs[0]
     return SimpleNamespace(raw=raw, tok_path=tok_path, norm_flag=norm_flag,
                            text=text, sc=sc, tk=tk, buf=buf, n=n,
-                           t_rec=tk._t_rec(False), candidate=candidate)
+                           t_rec=tk._t_rec(False), candidate=candidate,
+                           gat_s=gat_s)
 
 
 def gather_work(buf, n: int, tabs):
@@ -459,11 +468,18 @@ def masked_pairs(t, tabs):
     return pairs, counts
 
 
-def trainer_phase(dev, card: str) -> dict:
-    """Candidate scoring and ``train_vocab`` on the card; returns, per
-    kernel on the trainer's path, its trainer-shape numbers."""
-    import shutil
-    import tempfile
+def _cand_key(cand) -> str:
+    """A candidate's identity across processes: the hash of its tokens."""
+    return hashlib.sha1(b"\0".join(bytes(t) for t in cand.tokens)).hexdigest()
+
+
+def trainer_phase(dev, card: str, work: str):
+    """Candidate scoring and ``train_vocab`` on the card, in ``work``;
+    returns, per kernel on the trainer's path, its trainer-shape numbers,
+    and what the later trainer phases compare with: the pool and its text,
+    the native run's round lines and files, and every candidate the cuda
+    run scored, by ``_cand_key``."""
+    from types import SimpleNamespace
     from unittest import mock
 
     from tokenmonster_tpu_torch.native import load_native
@@ -490,138 +506,137 @@ def trainer_phase(dev, card: str) -> dict:
             print(f"FAILED: {msg}", flush=True)
             failed.append(msg)
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="chip_smoke_trainer_",
-                            dir=os.path.join(ROOT, "build"))
-    try:
-        t = trainer_inputs(dev, card, work)
-        sc, tk, text = t.sc, t.tk, t.text
-        sup = sc._sup
+    t = trainer_inputs(dev, card, work)
+    sc, tk, text = t.sc, t.tk, t.text
+    sup = sc._sup
 
-        errs = dict.fromkeys(TRAIN_KERNELS, 0)
-        mask_ms, score_ms = [], []
-        for ci in range(3):
-            cand = t.candidate()
-            t0 = time.perf_counter()
-            tabs = candidate_runtime_state(sup, cand)
-            torch.cuda.synchronize()
-            mask_ms.append((time.perf_counter() - t0) * 1e3)
-            cpairs, cwork = masked_pairs(t, tabs)
-            for name in TRAIN_KERNELS:
-                errs[name] = max(errs[name], compare(cpairs, name))
-            pairs = cpairs         # timed below: the last candidate's
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            got_s, got_t, got_m, repairs = score_strips(
-                tk, tabs, [text], len(cand.reverse))
-            end.record()
-            end.synchronize()
-            score_ms.append(start.elapsed_time(end))
-            want_s, want_t, want_m = native_score(cand, [text])
-            check(np.array_equal(got_s, want_s) and got_t == want_t
-                  and set(np.nonzero(got_m)[0].tolist()) == want_m,
-                  f"candidate {ci}: device scores differ from native")
-            got = sc.score(cand, [text])
-            check(np.array_equal(got[0], want_s) and got[1] == want_t
-                  and got[2] == want_m,
-                  f"candidate {ci}: GpuCandidateScorer.score differs")
-            print(f"candidate {ci}: {len(cand.reverse)} ids, "
-                  f"{len(cand.tokens)} entries; match/decide/follow "
-                  f"max_abs_err {errs}; {got[1]} tokens, missing "
-                  f"{sorted(got[2])}, junction repairs {repairs} over "
-                  f"{len(text)} bytes, all on the card")
-        check(not any(errs.values()), f"kernels disagree: {errs}")
-
-        # the junction repair, forced: after an "x", a run of "a" with
-        # tokens "aa", "a", "x" puts every lane out of the text's phase
-        rv = port.CandidateScorer(1, 2, t.norm_flag).build([b"aa", b"a", b"x"])
-        rsc = port.GpuCandidateScorer(1, 2, t.norm_flag, device=dev)
-        rsc.set_specials([])
-        rsc.prepare([b"aa", b"a", b"x"])
-        run = [b"x" + b"a" * (300 << 10) + b"xaaxa" * 20]
-        got = rsc.score(rv, run)
-        want = native_score(rv, run)
-        check(np.array_equal(got[0], want[0]) and got[1:] == want[1:]
-              and rsc.repairs > 0, f"repaired run: {rsc.repairs} repairs, "
-                                   "or scores differ from native")
-        print(f"junction repair: {len(run[0])} bytes of one run, "
-              f"{rsc.repairs} repairs, equal to native")
-        print(f"host masking: {statistics.median(mask_ms):.3f} ms per "
-              f"candidate (median of 3, upload included); device score: "
-              f"{statistics.median(score_ms):.3f} ms per candidate over "
-              f"{len(text)} bytes (CUDA events, read-back included) [{card}]")
-
-        # train_vocab on the card against the native backend
-        scored, scorers = [], []
-
-        class Recording(port.GpuCandidateScorer):
-            def __init__(self, *args, **kw):
-                super().__init__(*args, **kw)
-                scorers.append(self)
-
-            def prepare(self, superset_tokens, hashmatch_tables=None):
-                t0 = time.perf_counter()
-                super().prepare(superset_tokens, hashmatch_tables)
-                torch.cuda.synchronize()
-                self.arm_s = time.perf_counter() - t0
-
-            def score(self, cand, datasets):
-                res = super().score(cand, datasets)
-                scored.append((cand, datasets, res))
-                return res
-
-        log = _RoundLog()
-        logger = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
-        logger.addHandler(log)
-        logger.setLevel(logging.INFO)
-
-        def config(backend):
-            return port.TrainConfig(vocab_size=TRAIN_VOCAB, workers=2,
-                                   fast=True, seed=TRAIN_SEED,
-                                   max_rounds=TRAIN_ROUNDS, backend=backend)
-
-        res_cuda = os.path.join(work, "cuda")
-        res_native = os.path.join(work, "native")
-        _build.reset_launches()
-        with mock.patch.object(port, "GpuCandidateScorer", Recording):
-            rounds_cuda, cuda_s = _train(lambda: port.train_vocab(
-                t.raw, t.tok_path, res_cuda, config("cuda"), device=dev),
-                log)
+    errs = dict.fromkeys(TRAIN_KERNELS, 0)
+    mask_ms, score_ms = [], []
+    for ci in range(3):
+        cand = t.candidate()
+        t0 = time.perf_counter()
+        tabs = candidate_runtime_state(sup, cand)
         torch.cuda.synchronize()
-        launches = dict(_build.launches)
-        rounds_native, native_s = _train(lambda: port.train_vocab(
-            t.raw, t.tok_path, res_native, config("native")), log)
-        logger.removeHandler(log)
-        for line in rounds_cuda:
-            print(f"cuda   {line}")
-        check(rounds_cuda == rounds_native,
-              f"rounds differ from native: {rounds_native}")
-        check(any(" deleted 0;" not in r for r in rounds_cuda),
-              "no round deleted a token")
-        files = _dir_bytes(res_cuda)
-        check(files and files == _dir_bytes(res_native),
-              f"results differ from native's: {sorted(files)}")
-        check(len(scorers) == 1, f"{len(scorers)} scorers armed")
-        for cand, datasets, (got_s, got_t, got_miss) in scored:
-            want_s, want_t, want_m = native_score(cand, datasets)
-            check(np.array_equal(got_s, want_s) and got_t == want_t
-                  and got_miss == want_m,
-                  "a candidate of the cuda run differs from native")
-        check(all(launches[k] > 0 for k in TRAIN_KERNELS),
-              f"a trainer kernel was not launched: {launches}")
-        print(f"train_vocab: {len(scored)} candidates scored on the card "
-              f"and by native, {len(files)} files written "
-              f"({', '.join(sorted(files))}); junction repairs "
-              f"{scorers[0].repairs}, every byte on the card; launches "
-              f"{launches}")
-        arm = scorers[0].arm_s if scorers else 0.0
-        print(f"wall per round: cuda {(cuda_s - arm) / TRAIN_ROUNDS:.3f} s "
-              f"after a {arm:.3f} s superset arm, native "
-              f"{native_s / TRAIN_ROUNDS:.3f} s ({os.cpu_count()} host "
-              f"threads) [{card}]")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        mask_ms.append((time.perf_counter() - t0) * 1e3)
+        cpairs, cwork = masked_pairs(t, tabs)
+        for name in TRAIN_KERNELS:
+            errs[name] = max(errs[name], compare(cpairs, name))
+        pairs = cpairs         # timed below: the last candidate's
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got_s, got_t, got_m, repairs = score_strips(
+            tk, tabs, [text], len(cand.reverse))
+        end.record()
+        end.synchronize()
+        score_ms.append(start.elapsed_time(end))
+        want_s, want_t, want_m = native_score(cand, [text])
+        check(np.array_equal(got_s, want_s) and got_t == want_t
+              and set(np.nonzero(got_m)[0].tolist()) == want_m,
+              f"candidate {ci}: device scores differ from native")
+        got = sc.score(cand, [text])
+        check(np.array_equal(got[0], want_s) and got[1] == want_t
+              and got[2] == want_m,
+              f"candidate {ci}: GpuCandidateScorer.score differs")
+        print(f"candidate {ci}: {len(cand.reverse)} ids, "
+              f"{len(cand.tokens)} entries; match/decide/follow "
+              f"max_abs_err {errs}; {got[1]} tokens, missing "
+              f"{sorted(got[2])}, junction repairs {repairs} over "
+              f"{len(text)} bytes, all on the card")
+    check(not any(errs.values()), f"kernels disagree: {errs}")
+
+    # the junction repair, forced: after an "x", a run of "a" with
+    # tokens "aa", "a", "x" puts every lane out of the text's phase
+    rv = port.CandidateScorer(1, 2, t.norm_flag).build([b"aa", b"a", b"x"])
+    rsc = port.GpuCandidateScorer(1, 2, t.norm_flag, device=dev)
+    rsc.set_specials([])
+    rsc.prepare([b"aa", b"a", b"x"])
+    run = [b"x" + b"a" * (300 << 10) + b"xaaxa" * 20]
+    got = rsc.score(rv, run)
+    want = native_score(rv, run)
+    check(np.array_equal(got[0], want[0]) and got[1:] == want[1:]
+          and rsc.repairs > 0, f"repaired run: {rsc.repairs} repairs, "
+                               "or scores differ from native")
+    print(f"junction repair: {len(run[0])} bytes of one run, "
+          f"{rsc.repairs} repairs, equal to native")
+    print(f"host masking: {statistics.median(mask_ms):.3f} ms per "
+          f"candidate (median of 3, upload included); device score: "
+          f"{statistics.median(score_ms):.3f} ms per candidate over "
+          f"{len(text)} bytes (CUDA events, read-back included) [{card}]")
+
+    # train_vocab on the card against the native backend
+    scored, scorers = [], []
+
+    class Recording(port.GpuCandidateScorer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            scorers.append(self)
+
+        def prepare(self, superset_tokens, hashmatch_tables=None):
+            t0 = time.perf_counter()
+            super().prepare(superset_tokens, hashmatch_tables)
+            torch.cuda.synchronize()
+            self.arm_s = time.perf_counter() - t0
+
+        def score(self, cand, datasets):
+            res = super().score(cand, datasets)
+            scored.append((cand, datasets, res))
+            return res
+
+    log = _RoundLog()
+    logger = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
+
+    def config(backend):
+        return port.TrainConfig(vocab_size=TRAIN_VOCAB, workers=2,
+                               fast=True, seed=TRAIN_SEED,
+                               max_rounds=TRAIN_ROUNDS, backend=backend)
+
+    res_cuda = os.path.join(work, "cuda")
+    res_native = os.path.join(work, "native")
+    _build.reset_launches()
+    with mock.patch.object(port, "GpuCandidateScorer", Recording):
+        rounds_cuda, cuda_s = _train(lambda: port.train_vocab(
+            t.raw, t.tok_path, res_cuda, config("cuda"), device=dev),
+            log)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    rounds_native, native_s = _train(lambda: port.train_vocab(
+        t.raw, t.tok_path, res_native, config("native")), log)
+    logger.removeHandler(log)
+    for line in rounds_cuda:
+        print(f"cuda   {line}")
+    check(rounds_cuda == rounds_native,
+          f"rounds differ from native: {rounds_native}")
+    check(any(" deleted 0;" not in r for r in rounds_cuda),
+          "no round deleted a token")
+    files = _dir_bytes(res_cuda)
+    check(files and files == _dir_bytes(res_native),
+          f"results differ from native's: {sorted(files)}")
+    check(len(scorers) == 1, f"{len(scorers)} scorers armed")
+    for cand, datasets, (got_s, got_t, got_miss) in scored:
+        want_s, want_t, want_m = native_score(cand, datasets)
+        check(np.array_equal(got_s, want_s) and got_t == want_t
+              and got_miss == want_m,
+              "a candidate of the cuda run differs from native")
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+          f"a trainer kernel was not launched: {launches}")
+    print(f"train_vocab: {len(scored)} candidates scored on the card "
+          f"and by native, {len(files)} files written "
+          f"({', '.join(sorted(files))}); junction repairs "
+          f"{scorers[0].repairs}, every byte on the card; launches "
+          f"{launches}")
+    arm = scorers[0].arm_s if scorers else 0.0
+    print(f"wall per round: cuda {(cuda_s - arm) / TRAIN_ROUNDS:.3f} s "
+          f"after a {arm:.3f} s superset arm, native "
+          f"{native_s / TRAIN_ROUNDS:.3f} s ({os.cpu_count()} host "
+          f"threads) [{card}]")
+    shared = SimpleNamespace(
+        raw=t.raw, text=t.text, tok_path=t.tok_path, gat_s=t.gat_s,
+        rounds_native=rounds_native, files_native=_dir_bytes(res_native),
+        round_s=(cuda_s - arm) / TRAIN_ROUNDS,
+        scored={_cand_key(c): r for c, _d, r in scored})
 
     out = {}
     for name in TRAIN_KERNELS:
@@ -672,7 +687,311 @@ def trainer_phase(dev, card: str) -> dict:
     print(f"shared memory at trainer shapes: "
           f"{smem_plan(t.buf, t.n, tabs, LANES, tk.chunk, t.t_rec)}")
     require(not failed, f"trainer phase: {len(failed)} checks failed")
-    return out
+    return out, shared
+
+def sort_phase(dev, card: str, shared) -> dict:
+    """getalltokens of the trainer phase's configuration with
+    ``TM_GAT_DEVICE=1``: every micro-chunk's window sort on the card (no
+    host fallback), the ``.tok`` file byte for byte the host sort's; then
+    each micro-chunk's sort on the card against the native host sort, in
+    turns in this process, with the same run structure.  Returns the
+    sort's numbers for the kernels line."""
+    from unittest import mock
+
+    from tokenmonster_tpu_torch.native import native_sorted_windows
+    from tokenmonster_tpu_torch.ops import device_sort
+    from tokenmonster_tpu_torch.train import getalltokens as gat
+
+    sorts = []
+    real = device_sort.device_sorted_windows
+
+    def recording(data, n, width, device="cuda"):
+        sorts.append((np.array(data, copy=True), n, width, str(device)))
+        return real(data, n, width, device)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    os.environ["TM_GAT_DEVICE"] = "1"
+    try:
+        with mock.patch.object(device_sort, "device_sorted_windows",
+                               recording):
+            t0 = time.perf_counter()
+            counter, char_table, header = gat.get_all_tokens(
+                shared.raw, "balanced", charset=1, normalization="nfd",
+                using_capcode=2, min_occur_total=TRAIN_MIN_OCCUR)
+            gat_s = time.perf_counter() - t0
+    finally:
+        del os.environ["TM_GAT_DEVICE"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    path = os.path.join(os.path.dirname(shared.tok_path), "pool_device.tok")
+    gat.save_tokens_file(path, counter, char_table, header)
+    with open(path, "rb") as f, open(shared.tok_path, "rb") as g:
+        same = f.read() == g.read()
+    require(sorts and all(d == "cuda" for *_x, d in sorts),
+            f"getalltokens did not sort on the card: {sorts}")
+    require(same, "the device sort's .tok file differs from the host "
+                  "sort's")
+    print(f"getalltokens with TM_GAT_DEVICE=1: {len(counter)} candidates in "
+          f"{gat_s:.1f} s (host sort: {shared.gat_s:.1f} s), .tok byte for "
+          f"byte the host sort's; {len(sorts)} micro-chunk sorts on the "
+          f"card, peak {peak / 2**30:.3f} GiB allocated [{card}]")
+
+    rows = []
+    for data, n, width, _d in sorts:
+        w32 = -(-width // 4)
+        dev_s, host_s = [], []
+        for turn in range(REPEAT):           # device, host, host, device...
+            for side in (("dev", "host") if turn % 2 == 0
+                         else ("host", "dev")):
+                t0 = time.perf_counter()
+                if side == "dev":
+                    order_d, fd_d = real(data, n, width, dev)
+                    dev_s.append(time.perf_counter() - t0)
+                else:
+                    order_h, fd_h = native_sorted_windows(data, n, width)
+                    host_s.append(time.perf_counter() - t0)
+        require(np.array_equal(np.sort(order_d), np.arange(n, dtype=np.uint32))
+                and np.array_equal(np.minimum(fd_d, width),
+                                   np.minimum(fd_h, width)),
+                f"micro-chunk of {n} windows: the run structure differs "
+                "from the host sort's")
+        # the bound: every LSD pass reads and writes each position's w32
+        # words once
+        b_ms = w32 * 2 * w32 * 4 * n / PEAK_BYTES_S * 1e3
+        ms, host_ms = (statistics.median(dev_s) * 1e3,
+                       statistics.median(host_s) * 1e3)
+        rows.append({"windows": n, "width": width, "ms": ms,
+                     "host_ms": host_ms, "bound_ms": b_ms})
+        print(f"window sort of a micro-chunk ({n} windows of {width} bytes, "
+              f"{w32} LSD passes of torch.sort(stable=True)): card "
+              f"{ms:.3f} ms (upload, passes, first differences and "
+              f"download), native host sort {host_ms:.3f} ms "
+              f"({os.cpu_count()} threads), in turns, medians of {REPEAT}; "
+              f"bound {b_ms:.3f} ms (bytes: {w32} passes reading and "
+              f"writing {4 * w32} B a window) [{card}]")
+    return {"name": "device_sort", "route": "torch",
+            "source": "tokenmonster_tpu_torch/ops/device_sort.py",
+            "replaces": "tokenmonster_tpu/ops/device_sort.py:26 (XLA, not "
+                        "a Pallas kernel)",
+            "getalltokens_s": gat_s, "host_getalltokens_s": shared.gat_s,
+            "peak_bytes": peak, "micro_chunks": rows}
+
+
+# One rank of the multi-process trainer run (``multidevice_phase``): joins
+# a gloo group on localhost, runs the trainer phase's seeded train_vocab
+# with the scorer on the device given, and prints its round lines,
+# launches, arm time and scored candidates on one line.  Arguments: rank,
+# world, port, work directory (pool.tok and data.bin), the TrainConfig
+# fields as JSON, device.
+RANK_CHILD = r"""
+import hashlib, json, logging, os, sys, time
+
+import numpy as np
+import torch
+
+from tokenmonster_tpu_torch.ops import _build
+from tokenmonster_tpu_torch.parallel import multihost
+from tokenmonster_tpu_torch.train import trainvocab as port
+
+rank, world, port_no, work, cfg, device = (
+    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+    json.loads(sys.argv[5]), sys.argv[6])
+multihost.init_distributed(f"tcp://localhost:{port_no}", world, rank,
+                           backend="gloo", timeout_s=300)
+rounds, scored, arm = [], {}, []
+
+
+class Rounds(logging.Handler):
+    def emit(self, record):
+        if record.getMessage().startswith("round "):
+            rounds.append(record.getMessage())
+
+
+class Recording(port.GpuCandidateScorer):
+    def prepare(self, superset_tokens, hashmatch_tables=None):
+        t0 = time.perf_counter()
+        super().prepare(superset_tokens, hashmatch_tables)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        arm.append(time.perf_counter() - t0)
+
+    def score(self, cand, datasets):
+        res = super().score(cand, datasets)
+        key = hashlib.sha1(b"\0".join(bytes(t) for t in cand.tokens))
+        scored[key.hexdigest()] = res
+        return res
+
+
+log = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
+log.addHandler(Rounds())
+log.setLevel(logging.INFO)
+port.GpuCandidateScorer = Recording
+with open(os.path.join(work, "data.bin"), "rb") as f:
+    raw = f.read()
+_build.reset_launches()
+t0 = time.perf_counter()
+port.train_vocab(raw, os.path.join(work, "pool.tok"),
+                 os.path.join(work, "ranks"),
+                 port.TrainConfig(backend="cuda", **cfg), device=device)
+if torch.device(device).type == "cuda":
+    torch.cuda.synchronize()
+secs = time.perf_counter() - t0
+np.savez(os.path.join(work, f"rank{rank}.npz"),
+         **{k: v[0] for k, v in scored.items()})
+print("RANK " + json.dumps({
+    "rounds": rounds, "launches": dict(_build.launches), "seconds": secs,
+    "arm_s": arm[0],
+    "scored": {k: [v[1], sorted(v[2])] for k, v in scored.items()}}),
+    flush=True)
+"""
+
+
+def run_ranks(work: str, world: int, cfg: dict, device: str) -> list:
+    """Run ``world`` ranks of ``RANK_CHILD`` over one rendezvous on
+    localhost, in ``work`` (which holds pool.tok and data.bin), each in a
+    process that refuses jax and the JAX package, with a timeout of its
+    own; returns each rank's result, its scored candidates as
+    {key: (scores, n_tokens, missing set)}."""
+    import socket
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port_no = str(sock.getsockname()[1])
+    sock.close()
+    site = os.path.join(work, "site")
+    os.makedirs(site, exist_ok=True)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(PIPELINE_SITE)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([site, ROOT]),
+           "LOCAL_WORLD_SIZE": str(world)}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_CHILD, str(rank), str(world), port_no,
+         work, json.dumps(cfg), device], cwd=work,
+        env={**env, "LOCAL_RANK": str(rank)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    ranks = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"rank {rank} exited {p.returncode}: "
+                                   f"{err[-3000:]}")
+        line = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+        require(len(line) == 1, f"rank {rank} printed no result")
+        got = json.loads(line[0][5:])
+        arrays = np.load(os.path.join(work, f"rank{rank}.npz"))
+        got["scored"] = {k: (arrays[k], n_tok, set(miss))
+                         for k, (n_tok, miss) in got["scored"].items()}
+        ranks.append(got)
+    return ranks
+
+
+def multidevice_phase(dev, card: str, shared) -> dict:
+    """The trainer phase's seeded ``train_vocab`` with the scorer split
+    over two slots on the one card (``device=[cuda:0, cuda:0]``: each
+    candidate's text in two shares of its dispatches, each on its own
+    thread and stream), then as two processes over ``torch.distributed``
+    (gloo: two ranks cannot share a card over NCCL), each rank's share on
+    the card: round lines, written files and every candidate's scores,
+    token count and missing set equal to the one-device run and to native,
+    and every trainer kernel launched in each process.  Returns the
+    launches."""
+    from unittest import mock
+
+    from tokenmonster_tpu_torch.ops import _build
+    from tokenmonster_tpu_torch.parallel.score import plan_pieces
+    from tokenmonster_tpu_torch.train import trainvocab as port
+
+    work = os.path.dirname(shared.tok_path)
+    cfg = dict(vocab_size=TRAIN_VOCAB, workers=2, fast=True, seed=TRAIN_SEED,
+               max_rounds=TRAIN_ROUNDS)
+    scored, scorers = {}, []
+
+    class Recording(port.GpuCandidateScorer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            scorers.append(self)
+
+        def prepare(self, superset_tokens, hashmatch_tables=None):
+            t0 = time.perf_counter()
+            super().prepare(superset_tokens, hashmatch_tables)
+            torch.cuda.synchronize()
+            self.arm_s = time.perf_counter() - t0
+
+        def score(self, cand, datasets):
+            res = super().score(cand, datasets)
+            scored[_cand_key(cand)] = res
+            return res
+
+    def same_scores(got: dict) -> bool:
+        return (got.keys() == shared.scored.keys() and all(
+            np.array_equal(g[0], shared.scored[k][0])
+            and g[1:] == shared.scored[k][1:] for k, g in got.items()))
+
+    log = _RoundLog()
+    logger = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
+    res_two = os.path.join(work, "two_slots")
+    _build.reset_launches()
+    with mock.patch.object(port, "GpuCandidateScorer", Recording):
+        rounds, secs = _train(lambda: port.train_vocab(
+            shared.raw, shared.tok_path, res_two,
+            port.TrainConfig(backend="cuda", **cfg), device=[dev, dev]), log)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    logger.removeHandler(log)
+    sc = scorers[0]
+    shares = plan_pieces([len(sc._sup.tokenizer._plan(len(shared.text))[1])],
+                         2)
+    require(len(scorers) == 1 and len(sc._slots) == 2 and all(shares),
+            f"the scorer was not armed on two slots, or a slot has no share "
+            f"of the text: {shares}")
+    require(rounds == shared.rounds_native,
+            f"two slots: rounds differ from native: {rounds}")
+    require(_dir_bytes(res_two) == shared.files_native,
+            "two slots: files differ from native's")
+    require(same_scores(scored), "two slots: a candidate's scores differ "
+                                 "from the one-device run's")
+    require(all(launches[k] > 0 for k in TRAIN_KERNELS),
+            f"two slots: a trainer kernel was not launched: {launches}")
+    print(f"two slots on {dev}: the text's dispatches in shares {shares}; "
+          f"{len(scored)} candidates equal to the "
+          f"one-device run's (and native's), rounds and "
+          f"{len(shared.files_native)} files equal native's; launches "
+          f"{launches}; {(secs - sc.arm_s) / TRAIN_ROUNDS:.3f} s a round "
+          f"after a {sc.arm_s:.3f} s arm of both slots (one slot: "
+          f"{shared.round_s:.3f} s) [{card}]")
+
+    with open(os.path.join(work, "data.bin"), "wb") as f:
+        f.write(shared.raw)
+    t0 = time.perf_counter()
+    ranks = run_ranks(work, 2, cfg, str(dev))
+    secs = time.perf_counter() - t0
+    for rank, got in enumerate(ranks):
+        got_scored = got["scored"]
+        require(got["rounds"] == shared.rounds_native,
+                f"rank {rank}: rounds differ from native: {got['rounds']}")
+        require(same_scores(got_scored), f"rank {rank}: a candidate's "
+                "scores differ from the one-device run's")
+        require(all(got["launches"].get(k, 0) > 0 for k in TRAIN_KERNELS),
+                f"rank {rank} did not launch every trainer kernel: "
+                f"{got['launches']}")
+    require(_dir_bytes(os.path.join(work, "ranks")) == shared.files_native,
+            "two processes: rank 0's files differ from native's")
+    print(f"two processes (gloo, one card): {len(ranks[0]['scored'])} "
+          f"candidates equal to the one-device run's in both ranks, rounds "
+          f"equal native's in both, rank 0's files equal native's; launches "
+          f"{[r['launches'] for r in ranks]}; a round "
+          f"{[round((r['seconds'] - r['arm_s']) / TRAIN_ROUNDS, 3) for r in ranks]}"
+          f" s after arms of {[round(r['arm_s'], 3) for r in ranks]} s "
+          f"({secs:.1f} s in all, start-up included) [{card}]")
+    return {"two_slot_launches": launches,
+            "rank_launches": [r["launches"] for r in ranks]}
+
 
 def _popcount_share(words: torch.Tensor) -> float:
     """The share of set bits in int32 ``words``."""
@@ -1342,9 +1661,22 @@ def main() -> int:
     print(f"native: {len(norm) / nat_s / 1e6:.3f} MB/s over {len(norm)} "
           f"normalized bytes, {os.cpu_count()} host threads [{card}]")
 
-    phase("trainer: candidate scoring and train_vocab")
-    trainer = trainer_phase(dev, card)
-    require_self_contained("the trainer")
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_trainer_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        phase("trainer: candidate scoring and train_vocab")
+        trainer, shared = trainer_phase(dev, card, work)
+        require_self_contained("the trainer")
+        phase("getalltokens: the window sort on the card")
+        device_sort = sort_phase(dev, card, shared)
+        phase("trainer: multi-device scoring, two slots and two processes")
+        multidevice = multidevice_phase(dev, card, shared)
+        require_self_contained("multi-device scoring")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     phase("trainer at reference pool scale: REMAP mode")
     bigpool = bigpool_phase(dev, card)
     require_self_contained("the reference-scale trainer")
@@ -1355,9 +1687,15 @@ def main() -> int:
         k.update(trainer.get(k["name"], {}))
         k.update(bigpool.get(k["name"], {}))
         k["pipeline_launches"] = pipeline[k["name"]]
+        if k["name"] in TRAIN_KERNELS:
+            k["two_slot_launches"] = multidevice["two_slot_launches"][
+                k["name"]]
+            k["rank_launches"] = [r[k["name"]]
+                                  for r in multidevice["rank_launches"]]
 
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms,
-                      "launch_floor_device_ms": floor_device_ms}))
+                      "launch_floor_device_ms": floor_device_ms,
+                      "not_kernels": [device_sort]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

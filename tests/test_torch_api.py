@@ -93,3 +93,70 @@ def test_cuda_without_card_raises(monkeypatch):
     from tokenmonster_tpu.core.vocab import Vocab
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tokenmonster_tpu_torch.GpuTokenizer(Vocab.load(VOCAB), device="cuda")
+
+
+def _at_max_entries(monkeypatch, v):
+    """Lower the device tables' limit to ``v``'s size, as a vocabulary of
+    2^20 entries would meet it, and make every input a device candidate."""
+    from tokenmonster_tpu_torch.ops import tables
+    monkeypatch.setattr(tables, "MAX_ENTRIES", len(v._core.tokens))
+    monkeypatch.setattr(v, "TPU_THRESHOLD", 16)
+
+
+def test_auto_route_sends_a_vocabulary_at_max_entries_to_native(
+        monkeypatch):
+    """Under "auto" a vocabulary the device tables refuse for its size goes
+    to native, counted there, and the device tokenizer is never built;
+    "device" still raises, naming the roadmap item."""
+    ref = tokenmonster_tpu.load(VOCAB)
+    v = tokenmonster_tpu_torch.load(VOCAB, device="cpu")
+    _at_max_entries(monkeypatch, v)
+    text = ENGLISH.decode() * 25
+    for k in (1, 2):
+        np.testing.assert_array_equal(v.tokenize(text), ref.tokenize(text))
+        assert v.last_route == "native"
+        assert v.route_counts == {"device": 0, "native": k}
+    assert v._tpu is None
+    v.route = "device"
+    with pytest.raises(NotImplementedError, match="item 14"):
+        v.tokenize(text)
+    assert v.route_counts == {"device": 0, "native": 2}
+
+
+def test_auto_route_at_max_entries_in_a_batch(monkeypatch):
+    """The batch path routes each item the same way: every item, small or
+    large, on native."""
+    ref = tokenmonster_tpu.load(VOCAB)
+    v = tokenmonster_tpu_torch.load(VOCAB, device="cpu")
+    _at_max_entries(monkeypatch, v)
+    texts = [ENGLISH.decode() * k for k in (1, 9, 30)]
+    for got, t in zip(v.tokenize(texts), texts):
+        np.testing.assert_array_equal(got, ref.tokenize(t))
+    assert v.route_counts == {"device": 0, "native": 3}
+
+
+def test_server_serves_a_vocabulary_at_max_entries(monkeypatch):
+    """The server loads through ``load``: a bulk request for a vocabulary
+    at the limit is answered on native, bytes equal to the JAX server's."""
+    import struct
+
+    from tokenmonster_tpu import server as jserver
+    from tokenmonster_tpu_torch import api as tapi
+    from tokenmonster_tpu_torch import server as tserver
+    from tokenmonster_tpu_torch.ops import tables
+
+    fname = VOCAB.encode()
+    size = len(tokenmonster_tpu_torch.load(VOCAB, device="cpu")._core.tokens)
+    monkeypatch.setattr(tables, "MAX_ENTRIES", size)
+    monkeypatch.setattr(tapi.Vocab, "TPU_THRESHOLD", 0)
+    text = ENGLISH * 20
+    req = struct.pack("<I", 1) + struct.pack("<Q", len(text)) + text
+    got = {}
+    for name, srv in (("jax", jserver.TokenMonsterServer()),
+                      ("port", tserver.TokenMonsterServer("cpu"))):
+        load = srv.handle(10, 0, bytes([len(fname)]) + fname)
+        vid = struct.unpack_from("<I", load, 1)[0]
+        got[name] = srv.handle(1, vid, req)
+        if name == "port":
+            assert srv.vocabs[vid].route_counts == {"device": 0, "native": 1}
+    assert got["port"] == got["jax"]

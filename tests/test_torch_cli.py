@@ -125,14 +125,14 @@ def test_exportvocab_equals_jax(case, trained, tmp_path, capsys):
 
 def test_trainvocab_backends(tmp_path):
     """``trainvocab -backend`` takes native or cuda (the default); tpu,
-    the JAX package's mesh-sharded backend, raises and names its item;
+    the JAX package's mesh-sharded backend, raises and points to cuda;
     ``-device cuda`` without a card raises."""
     tok = _pool(tmp_path, "pool.tok", CORPUS)
     data = tmp_path / "data.txt"
     data.write_bytes(CORPUS)
     argv = ["-vocab-size", "120", "-dataset", str(data), "-dictionary", tok,
             "-dir", str(tmp_path / "out"), "-max-rounds", "1"]
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="'cuda' backend here"):
         tcli._cmd_trainvocab(argv + ["-backend", "tpu"])
     with pytest.raises(SystemExit):
         tcli._cmd_trainvocab(argv + ["-backend", "pallas"])

@@ -510,3 +510,81 @@ def test_remap_scorer_on_card_equals_native(trainer, monkeypatch, how):
     assert got[1:] == want[1:] and got[2]
     other = sc0.score(cand, strips)
     np.testing.assert_array_equal(got[0], other[0])
+
+
+def test_device_sort_on_card_equals_cpu_and_host(cuda):
+    """The getalltokens window sort on the card: the same order and first
+    differences as the same torch ops on the CPU (the same stable passes),
+    and the host sort's run structure."""
+    from tokenmonster_tpu_torch.native import native_sorted_windows
+    from tokenmonster_tpu_torch.ops.device_sort import device_sorted_windows
+    raw, _dropped = stdlib_text(None, 600_000)
+    rng = np.random.default_rng(3)
+    data = np.frombuffer(raw + bytes(rng.integers(0, 256, 5000)
+                                     .astype(np.uint8)), np.uint8)
+    width = 41
+    n = len(data) - width - 1
+    order, fd = device_sorted_windows(data, n, width, cuda)
+    order_c, fd_c = device_sorted_windows(data, n, width, "cpu")
+    np.testing.assert_array_equal(order, order_c)
+    np.testing.assert_array_equal(fd, fd_c)
+    _order_h, fd_h = native_sorted_windows(data, n, width)
+    np.testing.assert_array_equal(np.minimum(fd, width),
+                                  np.minimum(fd_h, width))
+
+
+@pytest.mark.parametrize("case", ["whole", "split", "repair"])
+def test_two_slots_on_one_card_equal_one_slot(cuda, case):
+    """The scorer over two slots of one card (each its own thread and
+    stream) equals one slot and native: whole strips, a strip split over
+    the slots, and a split strip scored again whole."""
+    import torch_multidevice_cases as cases
+    one, cand, strips = cases.scoring_cases("cuda:0")[case]
+    v = cases.run_vocab() if case == "repair" else None
+    if v is None:
+        from torch_cases import VOCABS
+        v = VOCABS["capcode"]()
+    two = cases.scorer(v, ["cuda:0", "cuda:0"])
+    assert len(two._slots) == 2
+    assert all(s.stream is not None for s in two._slots)
+    with cases.split_geometry():
+        got, want1 = two.score(cand, strips), one.score(cand, strips)
+    want = native_score(cand, strips)
+    np.testing.assert_array_equal(got[0], want1[0])
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want1[1:] == want[1:]
+    assert two.repairs == one.repairs
+
+
+def test_two_processes_on_one_card(cuda, tmp_path):
+    """Two gloo processes, both scoring on the one card: each case's
+    scores equal native's in both ranks; ``train_vocab`` in both ranks
+    logs native's rounds, and rank 0 writes native's files."""
+    import logging
+
+    import torch_multidevice_cases as cases
+    cases.pool(str(tmp_path))
+    ranks = cases.launch_ranks(tmp_path, "cuda:0", 600)
+    for name, (_sc, cand, strips) in cases.scoring_cases("cpu").items():
+        want = native_score(cand, strips)
+        for got, _log in ranks:
+            np.testing.assert_array_equal(got[name], want[0])
+            assert got[name + "_meta"][0] == want[1]
+    rounds = []
+    logger = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
+    handler = logging.Handler()
+    handler.emit = lambda r: rounds.append(r.getMessage())
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        cases.train(str(tmp_path / "native"), None, backend="native")
+    finally:
+        logger.removeHandler(handler)
+    rounds = [r for r in rounds if r.startswith("round ")]
+    for _got, log in ranks:
+        assert log["rounds"] == rounds
+    names = sorted(os.listdir(tmp_path / "native"))
+    assert sorted(os.listdir(tmp_path / "results")) == names
+    for name in names:
+        assert ((tmp_path / "results" / name).read_bytes()
+                == (tmp_path / "native" / name).read_bytes())

@@ -84,3 +84,55 @@ def test_unbuildable_library_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="native library unavailable"):
         native.NativeVocab(Vocab.load(os.path.join(
             ROOT, "examples", "realtext-1024-fast.vocab")))
+
+
+OVERRUN_CHILD = """
+import sys
+import numpy as np
+from tokenmonster_tpu_torch.core.tokenizer import tokenize
+from tokenmonster_tpu_torch.core.vocab import Vocab
+from tokenmonster_tpu_torch.native import NativeVocab, id_bound
+
+v = Vocab()
+v._generate(tokens=[b" ", b"D", b"o", b"t", b"u", b"time", b" ut", b"tim"],
+            charset=1, normalize_string="none", using_capcode=2, level=5,
+            reset_token_ids=True)
+if sys.argv[1] == "unk":
+    assert v.enable_unk_token()
+text = b"out\\xc2" * 20000
+want, want_miss = tokenize(v, text)
+assert len(want) <= id_bound(len(text))
+nv = NativeVocab(v)
+entry = sys.argv[2]
+if entry == "score":
+    scores = np.zeros(len(v.reverse) + 1, np.int64)
+    n_tok, miss = nv.tokenize_score(text, scores)
+    n_del = int((want == v.delete_token).sum())
+    # tokensInText counts a missing byte as one token, unk or not
+    n_want = len(want) + (0 if sys.argv[1] == "unk" else want_miss)
+    assert (n_tok, miss) == (n_want, want_miss), (n_tok, miss)
+    assert scores.sum() == len(text) - want_miss + n_del
+else:
+    got, miss = nv.tokenize(text, threads=1 if entry == "one" else 4)
+    assert miss == want_miss and np.array_equal(got, want)
+print("ok", len(want), len(text))
+"""
+
+
+@pytest.mark.parametrize("unk", ["unk", "nounk"])
+@pytest.mark.parametrize("entry", ["one", "parallel", "score"])
+def test_more_ids_than_bytes_fit(entry, unk):
+    """A delete-token vocabulary emits more ids than bytes: with unk, "o",
+    then " ut" as a forward-delete branch, " ut" giving way to the virtual
+    space alone (a step of 0 bytes), "u", "t" and unk on each "out\\xc2"
+    give 6 ids for 4 bytes.  The id buffers of every entry point (one
+    thread, the parallel scan with its per-thread buffers and stitch, the
+    trainer's scoring pass) hold 3 ids a byte, and the ids equal the
+    port's pure-Python tokenizer.  In a subprocess: an overrun aborts the
+    process."""
+    res = subprocess.run([sys.executable, "-c", OVERRUN_CHILD, unk, entry],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, (res.returncode, res.stderr[-2000:])
+    ok, n_ids, n_bytes = res.stdout.split()
+    assert ok == "ok" and int(n_ids) > int(n_bytes)

@@ -3,8 +3,9 @@
 ``tokenmonster_tpu``, shown two ways: every import statement of every file
 (relative imports resolved), and a subprocess whose import system refuses
 both names while it imports the whole port, tokenizes through ``load``,
-builds a getalltokens pool, runs one seeded ``train_vocab`` round on
-the device path (``backend="cuda"``, ``device="cpu"``), exports the run
+builds a getalltokens pool (sorted by the device sort on the CPU), runs
+one seeded ``train_vocab`` round on the device path (``backend="cuda"``,
+two "cpu" scoring slots), exports the run
 with ``python -m tokenmonster_tpu_torch exportvocab`` and tokenizes
 through ``load_multiprocess_safe``, whose server process refuses both
 names too (the refusal is a ``sitecustomize`` on the path every process
@@ -89,10 +90,13 @@ def test_resolver_sees_relative_imports():
 
 def test_source_walk_covers_the_shell_surfaces():
     """The walk above finds every file of the port by itself, the command
-    line, the server, the client and the trainer tools included."""
+    line, the server, the client, the trainer tools, the corpus helpers,
+    the importers, the device sort and the multi-process layer included."""
     want = {os.path.join(PKG, *p.split("/")) for p in (
         "__main__.py", "cli.py", "server.py", "client.py",
-        "train/exportvocab.py", "train/tools.py", "train/score_helpers.py")}
+        "train/exportvocab.py", "train/tools.py", "train/score_helpers.py",
+        "train/dataset_helpers.py", "train/imports.py", "ops/device_sort.py",
+        "parallel/multihost.py")}
     assert want <= set(_sources())
 
 
@@ -134,6 +138,7 @@ from tokenmonster_tpu_torch.train.getalltokens import (get_all_tokens,
 from tokenmonster_tpu_torch.train.trainvocab import TrainConfig, train_vocab
 corpus = (b"The quick brown fox jumps over the lazy dog. The dog sleeps "
           b"while the fox runs through the forest. ") * 60
+os.environ["TM_GAT_DEVICE"] = "cpu"       # the device sort, on the CPU
 counter, char_table, header = get_all_tokens(
     corpus, "balanced", charset=1, normalization="nfd", using_capcode=2,
     min_occur_total=10, min_occur_singles=1, add_extra_tokens=False)
@@ -149,7 +154,8 @@ log.addHandler(type("H", (logging.Handler,), {
     "emit": lambda self, r: rounds.append(r.getMessage())})())
 train_vocab(corpus, tok, os.path.join(work, "out"),
             TrainConfig(vocab_size=100, workers=2, fast=True, seed=3,
-                        max_rounds=1, backend="cuda"), device="cpu")
+                        max_rounds=1, backend="cuda"),
+            device=["cpu", "cpu"])
 assert any(r.startswith("round 1:") for r in rounds), rounds
 sys.argv = ["-m", "exportvocab", "-input", tok, "-output",
             os.path.join(work, "out.vocab")]

@@ -315,12 +315,13 @@ def test_train_vocab_defaults_to_the_device(pool_file, tmp_path,
 
 def test_train_vocab_refuses_other_backends(pool_file, tmp_path):
     """The port's loop scores with "native" or "cuda"; the JAX package's
-    mesh-sharded "tpu" backend is not ported.  The loop is the port's own:
+    mesh-sharded "tpu" backend is "cuda" here, and asking for it raises
+    and says so.  The loop is the port's own:
     its scorers subclass the port's CandidateScorer, and no name of the
     JAX trainer module is rebound."""
     corpus, tok = pool_file
     for backend in ("tpu", "pallas"):
-        with pytest.raises(ValueError, match="item 10"):
+        with pytest.raises(ValueError, match="'cuda' backend here"):
             port.train_vocab(corpus, tok, str(tmp_path),
                              port.TrainConfig(vocab_size=120,
                                               backend=backend),

@@ -323,7 +323,7 @@ def zero_step_vocab(unk: bool = False):
     delete branch and, before the missing byte after "ut", " ut" gives way
     to its alternative " ", the virtual space alone: that step advances 0
     bytes (o, D, " ", u, t on "out\\xc2").  ``ZERO_STEP_TEXT`` holds it 30
-    times; its ids stay within the native tokenizer's buffer of n + 8.
+    times.
     ``ZERO_STEP_TOKENS`` are its tokens as the trainer builds them."""
     v = Vocab()
     v._generate(tokens=ZERO_STEP_TOKENS, charset=1, normalize_string="none", using_capcode=2,

@@ -33,6 +33,7 @@ import numpy as np
 from .core.tokenmeta import DOES_NOT_EXIST
 from .core.vocab import Vocab as _CoreVocab
 from .native import NativeVocab
+from .ops import tables
 from .ops.scan import GpuTokenizer, check_device
 
 ROUTES = ("auto", "device")
@@ -321,12 +322,16 @@ class Vocab:
 
     def _tokenize_one(self, item) -> np.ndarray:
         """One input through the route ``route`` picks, recorded in
-        ``last_route`` and ``route_counts``."""
+        ``last_route`` and ``route_counts``.  Under "auto" a vocabulary of
+        ``tables.MAX_ENTRIES`` entries or more, which the device tables
+        refuse (token words pack 20-bit indices), takes the native route;
+        "device" raises for it."""
         if isinstance(item, str):
             item = item.encode("utf-8")
         normalized = self._core.normalize(item)
         auto = self.route == "auto"
-        candidate = auto and len(normalized) >= self.TPU_THRESHOLD
+        candidate = (auto and len(normalized) >= self.TPU_THRESHOLD
+                     and len(self._core.tokens) < tables.MAX_ENTRIES)
         if self.route == "device" or (candidate
                                       and self._pick_route() == "tpu"):
             route, ids = "device", self._device_ids(normalized, timed=auto)

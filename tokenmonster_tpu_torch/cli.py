@@ -13,9 +13,15 @@ works too).  One difference, the device: ``trainvocab -backend`` takes
 "native" or "cuda" and defaults to "cuda" (candidates scored on the card,
 as ``TrainConfig`` does), and ``-device`` of ``trainvocab`` and ``server``
 ("cuda" by default; "cpu" runs the kernels' plain PyTorch versions) names
-where.  The JAX package's mesh-sharded ``-backend tpu`` is not ported:
-``train_vocab`` raises for it (ROADMAP.md §1 item 10).  Every other flag,
-default and printed line is the JAX CLI's.
+where.  For ``trainvocab``, "cuda" is every visible card, "cuda:k" one,
+and a comma-separated list one scoring slot each ("cuda:0,cuda:1").  The
+JAX package's mesh-sharded ``-backend tpu`` is ``-backend cuda`` here:
+``train_vocab`` raises for "tpu" and says so.  Launched as several
+processes with ``WORLD_SIZE`` above 1 in the environment (``torchrun``,
+or ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set by
+hand), ``trainvocab`` joins their process group and splits every
+candidate over the ranks (``parallel/multihost.py``); only rank 0 writes.
+Every other flag, default and printed line is the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -92,7 +98,7 @@ def _cmd_trainvocab(argv):
     p.add_argument("-special", default=None)
     p.add_argument("-fast", action="store_true")
     p.add_argument("-backend", default="cuda",
-                   choices=["native", "cuda", "tpu"])   # tpu: train_vocab raises
+                   choices=["native", "cuda", "tpu"])   # tpu: raises
     p.add_argument("-device", default="cuda")
     p.add_argument("-include-256-bytes", action="store_true")
     p.add_argument("-include-128-bytes", action="store_true")
@@ -125,15 +131,23 @@ def _cmd_trainvocab(argv):
         special_tokens=specials, max_rounds=a.max_rounds)
     with open(a.dataset, "rb") as f:
         dataset = f.read()
+    rank, world = 0, int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        from .parallel.multihost import init_distributed
+        rank, world = init_distributed()
     dictionary = a.dictionary
     if a.dictionary2:
         # set-union of the two candidate dictionaries before training,
         # header from the first (trainvocab.go dictionary2 merge)
-        from .train.tools import merge_tokens
-        os.makedirs(a.dir, exist_ok=True)
         dictionary = os.path.join(a.dir, "merged_dictionary.tok")
-        n = merge_tokens([a.dictionary, a.dictionary2], dictionary)
-        print(f"Merged dictionaries: {n} tokens")
+        if rank == 0:
+            from .train.tools import merge_tokens
+            os.makedirs(a.dir, exist_ok=True)
+            n = merge_tokens([a.dictionary, a.dictionary2], dictionary)
+            print(f"Merged dictionaries: {n} tokens")
+        if world > 1:                 # the other ranks read rank 0's file
+            import torch.distributed as dist
+            dist.barrier()
     best = train_vocab(dataset, dictionary, a.dir, cfg, device=a.device)
     print(f"Best: {best}")
 

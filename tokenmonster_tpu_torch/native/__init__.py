@@ -89,11 +89,11 @@ def _load(so):
     lib.tm_tokenize.restype = ctypes.c_int64
     lib.tm_tokenize.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
     lib.tm_tokenize_parallel.restype = ctypes.c_int64
     lib.tm_tokenize_parallel.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
     lib.tm_tokenize_score.restype = ctypes.c_int64
     lib.tm_tokenize_score.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -242,19 +242,35 @@ class NativeVocab:
         if n == 0:
             return np.zeros(0, np.uint32), 0
         buf = np.frombuffer(bytes(data), np.uint8)
-        out = np.empty(n + 8, np.uint32)
+        # a scan emits at most 3 ids a byte (tm_native.cpp, id_bound); the
+        # pages past the ids written are never touched
+        out = np.empty(id_bound(n), np.uint32)
         missing = ctypes.c_int64(0)
         if threads is None:
             threads = os.cpu_count() or 1
         if threads > 1 and n >= 64 * 1024:
             count = self._lib.tm_tokenize_parallel(
-                self._handle, buf.ctypes.data, n, out.ctypes.data,
+                self._handle, buf.ctypes.data, n, out.ctypes.data, len(out),
                 ctypes.byref(missing), threads)
         else:
             count = self._lib.tm_tokenize(
-                self._handle, buf.ctypes.data, n, out.ctypes.data,
+                self._handle, buf.ctypes.data, n, out.ctypes.data, len(out),
                 ctypes.byref(missing))
+        _check_scan(count, n)
         return out[:count].copy(), int(missing.value)
+
+
+def id_bound(n: int) -> int:
+    """Ids a scan of ``n`` bytes can emit (``id_bound`` in tm_native.cpp,
+    with its proof): 3 a byte."""
+    return 3 * n + 8
+
+
+def _check_scan(count: int, n: int) -> None:
+    if count < 0:
+        raise RuntimeError(f"the native scan of {n} bytes reached "
+                           f"{id_bound(n)} ids, its bound for a scan that "
+                           "ends: it would not have ended")
 
 
 def _add_score_method():
@@ -273,6 +289,7 @@ def _add_score_method():
         n_tokens = self._lib.tm_tokenize_score(
             self._handle, buf.ctypes.data, n, score_acc.ctypes.data,
             ctypes.byref(missing), mm_ptr)
+        _check_scan(n_tokens, n)
         return int(n_tokens), int(missing.value)
     NativeVocab.tokenize_score = tokenize_score
 

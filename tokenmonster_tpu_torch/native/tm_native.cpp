@@ -11,6 +11,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <cstdlib>
 #include <thread>
 #include <vector>
@@ -263,13 +264,44 @@ void* tm_vocab_new(const uint8_t* key_bytes, const uint32_t* key_offs,
 
 void tm_vocab_free(void* vp) { delete (Vocab*)vp; }
 
+// Ids a scan from position i0 of an n-byte text can emit: at most
+// 3 * (n - i0), so id buffers hold id_bound(n - i0) (the byte count is not
+// enough: a delete-token vocabulary emits more ids than bytes).
+//
+// Proof.  The scan ends at most at n, so it advances i by at most n - i0
+// bytes in all.  Each step of the scan does one of:
+//  - a missing byte: at most one id (unk), advancing 1 byte;
+//  - s1, s2, s3 or the skip path: one id, advancing the current token's
+//    length (at least 1 byte: tokens are never empty) or an alternative's
+//    length less fd.  That is 0 bytes only at fd 1 with a one-byte
+//    alternative (the virtual space alone), and the step leaves fd 0;
+//  - s1b, s2b, s3b (a forward-delete branch): two ids, the token and the
+//    delete token, leaving fd 1.  At fd 0 it advances at least 1 byte.  At
+//    fd 1 it advances 0 bytes only through a one-byte alternative, and then
+//    the scan is back in the state it was in: the same position, fd 1, and
+//    the same longest match of the virtual space plus the text there (the
+//    branch looks it up at that position, as the step that set fd 1 did),
+//    so the scan would repeat that step forever.  In a scan that ends,
+//    every forward-delete branch advances at least 1 byte.
+// Only a forward-delete branch leaves fd 1, so before every step that
+// advances 0 bytes (one id) comes a forward-delete branch that advanced at
+// least 1 byte (two ids), and the step after it runs at fd 0 and advances
+// again.  Charging each 0-byte step to the branch before it, every byte
+// advanced carries at most 3 ids.  (zero_step_vocab with unk on "out\xc2":
+// o + delete, the virtual space alone, u, t, unk: 6 ids for 4 bytes.)
+// tokenize_impl stops a scan that reaches the bound (one that would never
+// end) and returns -1.
+static inline int64_t id_bound(int64_t bytes) { return 3 * bytes + 8; }
+
 // Core scan over [i0, stop): emits ids and (optionally) per-emission records
 // packed as pos<<4 | fd | ntok<<1 | miss<<3 — the automaton state
 // (position, forwardDelete) at each emission, used for exact speculative
-// stitching (same scheme as the TPU scan kernel, ops/scan.py).
+// stitching (same scheme as the TPU scan kernel, ops/scan.py).  ``out``
+// holds ``cap`` ids (id_bound(n - i0) for a scan that ends); returns the id
+// count, or -1 where the scan reached ``cap``.
 static int64_t tokenize_impl(const Vocab* v, const uint8_t* data, int64_t n,
                              int64_t i0, int64_t stop, uint32_t* out,
-                             int64_t* missing_out,
+                             int64_t cap, int64_t* missing_out,
                              std::vector<uint64_t>* recs,
                              std::vector<uint32_t>* rec_offs,
                              int64_t* score_acc = nullptr,
@@ -312,6 +344,7 @@ static int64_t tokenize_impl(const Vocab* v, const uint8_t* data, int64_t n,
   };
 
   while (i < stop) {
+    if (n_out + 2 > cap) return -1;
     int lim = (int)((n - i) < max_len ? (n - i) : max_len);
     if (!D.longest(data + i, lim, &index, &length)) {
       if (has_unk) out[n_out++] = v->unk_token;
@@ -323,6 +356,7 @@ static int64_t tokenize_impl(const Vocab* v, const uint8_t* data, int64_t n,
       continue;
     }
     while (true) {  // checkpoint
+      if (n_out + 2 > cap) return -1;
       int of = v->flag[index];
       int64_t i1 = i + length;
       if (i1 < n && ((of & 32) == 0 || v->begin_byte[data[i1]] != 12)) {
@@ -490,17 +524,21 @@ int64_t tm_tokenize_score(void* vp, const uint8_t* data_in, int64_t n,
   if (n <= 0 || v->max_token_length == 0) return 0;
   std::vector<uint8_t> buf((size_t)n + 48, 0);
   std::memcpy(buf.data(), data_in, (size_t)n);
-  std::vector<uint32_t> out((size_t)n + 8);
+  // left uninitialised: the pages past the ids written are never touched
+  const int64_t cap = id_bound(n);
+  std::unique_ptr<uint32_t[]> out(new uint32_t[cap]);
   int64_t n_tokens = 0;
-  tokenize_impl(v, buf.data(), n, 0, n, out.data(), missing_out, nullptr,
-                nullptr, score_acc, &n_tokens, miss_mask);
+  if (tokenize_impl(v, buf.data(), n, 0, n, out.get(), cap, missing_out,
+                    nullptr, nullptr, score_acc, &n_tokens, miss_mask) < 0)
+    return -1;
   return n_tokens;
 }
 
 // Tokenize `data[0..n)` (already normalized+capcoded).  Writes ids into out
-// (capacity >= n+8).  Returns the id count; *missing_out = missing bytes.
+// (capacity ``cap``: id_bound(n) holds every scan that ends).  Returns the
+// id count, -1 where the ids reached ``cap``; *missing_out = missing bytes.
 int64_t tm_tokenize(void* vp, const uint8_t* data_in, int64_t n,
-                    uint32_t* out, int64_t* missing_out) {
+                    uint32_t* out, int64_t cap, int64_t* missing_out) {
   Vocab* v = (Vocab*)vp;
   *missing_out = 0;
   if (n <= 0 || v->max_token_length == 0) return 0;
@@ -508,30 +546,35 @@ int64_t tm_tokenize(void* vp, const uint8_t* data_in, int64_t n,
   // probes may read 40 bytes past any in-range position.
   std::vector<uint8_t> buf((size_t)n + 48, 0);
   std::memcpy(buf.data(), data_in, (size_t)n);
-  return tokenize_impl(v, buf.data(), n, 0, n, out, missing_out, nullptr,
-                       nullptr);
+  return tokenize_impl(v, buf.data(), n, 0, n, out, cap, missing_out,
+                       nullptr, nullptr);
 }
 
 // Thread-parallel tokenize with exact speculative stitching: each thread
 // scans its region from state (region_start, fd=0) and continues past the
 // next junction; streams are spliced at the first shared emission state.
 int64_t tm_tokenize_parallel(void* vp, const uint8_t* data_in, int64_t n,
-                             uint32_t* out, int64_t* missing_out,
-                             int n_threads) {
+                             uint32_t* out, int64_t cap,
+                             int64_t* missing_out, int n_threads) {
   Vocab* v = (Vocab*)vp;
   *missing_out = 0;
   if (n <= 0 || v->max_token_length == 0) return 0;
   const int64_t W = 256;
   if (n_threads < 1) n_threads = 1;
   if ((int64_t)n_threads > n / (4 * W)) n_threads = (int)(n / (4 * W));
-  if (n_threads <= 1) return tm_tokenize(vp, data_in, n, out, missing_out);
+  if (n_threads <= 1)
+    return tm_tokenize(vp, data_in, n, out, cap, missing_out);
 
   std::vector<uint8_t> buf((size_t)n + 48, 0);
   std::memcpy(buf.data(), data_in, (size_t)n);
   const uint8_t* data = buf.data();
 
   int64_t chunk = n / n_threads;
-  std::vector<std::vector<uint32_t>> ids(n_threads);
+  // a thread's scan runs on past its stop until its checkpoint loop ends,
+  // at most to n: its ids are bounded by id_bound(n - start), in buffers
+  // left uninitialised (pages past the ids written are never touched)
+  std::vector<std::unique_ptr<uint32_t[]>> ids(n_threads);
+  std::vector<int64_t> counts(n_threads, 0);
   std::vector<std::vector<uint64_t>> recs(n_threads);
   std::vector<std::vector<uint32_t>> offs(n_threads);
   std::vector<std::thread> threads;
@@ -540,14 +583,16 @@ int64_t tm_tokenize_parallel(void* vp, const uint8_t* data_in, int64_t n,
       int64_t start = (int64_t)t * chunk;
       int64_t end = (t == n_threads - 1) ? n : (int64_t)(t + 1) * chunk;
       int64_t stop = end + W < n ? end + W : n;
-      ids[t].resize((size_t)(stop - start) + 16);
+      int64_t cap_t = id_bound(n - start);
+      ids[t].reset(new uint32_t[cap_t]);
       int64_t miss = 0;
-      int64_t cnt = tokenize_impl(v, data, n, start, stop, ids[t].data(),
-                                  &miss, &recs[t], &offs[t]);
-      ids[t].resize((size_t)cnt);
+      counts[t] = tokenize_impl(v, data, n, start, stop, ids[t].get(),
+                                cap_t, &miss, &recs[t], &offs[t]);
     });
   }
   for (auto& th : threads) th.join();
+  for (int t = 0; t < n_threads; t++)
+    if (counts[t] < 0) return -1;
 
   // stitch
   int64_t n_out = 0, missing = 0;
@@ -575,7 +620,7 @@ int64_t tm_tokenize_parallel(void* vp, const uint8_t* data_in, int64_t n,
       }
       if (!found) {
         // pathological junction: redo everything single-threaded
-        return tm_tokenize(vp, data_in, n, out, missing_out);
+        return tm_tokenize(vp, data_in, n, out, cap, missing_out);
       }
       end_rec = ia + 1;
       next_start = ib + 1;
@@ -588,7 +633,8 @@ int64_t tm_tokenize_parallel(void* vp, const uint8_t* data_in, int64_t n,
       uint32_t lo = start_rec == 0 ? 0 : offs[t][start_rec - 1];
       uint32_t hi = offs[t][end_rec - 1];
       (void)id_from;
-      std::memcpy(out + n_out, ids[t].data() + lo,
+      if (n_out + (int64_t)(hi - lo) > cap) return -1;
+      std::memcpy(out + n_out, ids[t].get() + lo,
                   (size_t)(hi - lo) * sizeof(uint32_t));
       n_out += hi - lo;
       for (size_t k = start_rec; k < end_rec; k++) {

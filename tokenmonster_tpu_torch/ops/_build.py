@@ -125,6 +125,7 @@ def build_library() -> str:
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def load_library():
@@ -178,7 +179,8 @@ def launch(name: str, args: ctypes.Structure, device: torch.device) -> None:
     """Launch kernel ``name`` on ``device``'s current stream; raises if the
     launch was refused.  Counts the launch."""
     _launch(name, ctypes.byref(args), device)
-    launches[name] += 1
+    with _count_lock:              # scoring slots launch from threads
+        launches[name] += 1
 
 
 def spin(device: torch.device, cycles: int = 0) -> None:

@@ -137,12 +137,15 @@ class GpuTokenizer:
             plan.append((off, exact, -(-exact // chunk) - 1))
         return MAX_LANES, plan
 
-    def stage(self, data: bytes):
+    def stage(self, data: bytes, first: int = 0, stop: int | None = None):
         """Upload the dispatch buffers in one copy; returns the staged
-        object ``tokenize_staged`` runs (benchmarks reuse it)."""
+        object ``tokenize_staged`` runs (benchmarks reuse it).  ``first``
+        and ``stop``: stage only those dispatches of the text's plan (a
+        share of a long strip scored on several devices)."""
         n = len(data)
         arr = np.frombuffer(bytes(data), np.uint8)
         L, plan = self._plan(n)
+        plan = plan[first:stop]
         total = L * self.chunk + MARGIN
         p2 = -(-(total + 64) // GRAIN) * GRAIN
         host = np.zeros((len(plan), p2), np.uint8)
@@ -195,21 +198,22 @@ class GpuTokenizer:
         return start_next, (*out, done_all)
 
     def _run_staged(self, staged, full: bool, tabs, epilogue,
-                    patches: dict):
+                    patches: dict, final: bool = True):
         """Enqueue every dispatch of a staged text, ``start_next`` carried
         as a device tensor; no host sync.  ``tabs`` and ``epilogue``: this
         tokenizer's tables and ``_compact``, or a candidate's tables and
         the trainer's score epilogue; ``patches``: {dispatch: {lane:
-        columns}} of lanes to replace (the trainer's junction repair).
-        Returns per dispatch the epilogue's outputs and the follow's done
-        flag."""
+        columns}} of lanes to replace (the trainer's junction repair);
+        ``final``: the last staged dispatch is the text's last.  Returns
+        per dispatch the epilogue's outputs and the follow's done flag."""
         _n, L, bufs = staged
         start0 = torch.zeros((), dtype=torch.int64, device=self.device)
         outs = []
         for i, (buf, n_i, last_lane) in enumerate(bufs):
             start0, out = self._dispatch(buf, n_i, start0, last_lane,
-                                         i == len(bufs) - 1, L, full, tabs,
-                                         epilogue, patches.get(i, {}))
+                                         final and i == len(bufs) - 1, L,
+                                         full, tabs, epilogue,
+                                         patches.get(i, {}))
             outs.append(out)
         return outs
 

@@ -45,6 +45,16 @@ def _unique_substrings(data: np.ndarray, length: int):
     return keys.view(np.uint8).reshape(-1, length), counts
 
 
+def sort_device():
+    """The device ``TM_GAT_DEVICE`` names for the window sort, or None for
+    the host sort: unset, "" or "0" sort on the host, "1" on the default
+    card ("cuda"), any other value is a torch device ("cpu", "cuda:1")."""
+    name = os.environ.get("TM_GAT_DEVICE", "")
+    if name in ("", "0"):
+        return None
+    return "cuda" if name == "1" else name
+
+
 class SortedWindows:
     """One sort of the max-length windows serves every substring length.
 
@@ -64,12 +74,16 @@ class SortedWindows:
         if self.n == 0:
             return
         order = first_diff = None
-        if os.environ.get("TM_GAT_DEVICE") == "1":
-            # the JAX package's device-assisted suffix sort is not ported
-            raise NotImplementedError(
-                "TM_GAT_DEVICE=1: the device suffix sort of getalltokens is "
-                "not ported yet (ROADMAP.md §1 item 11); unset it for the "
-                "host sort")
+        device = sort_device()
+        if device is not None:
+            # device-assisted suffix sort (ops/device_sort.py): opt-in, as
+            # in the JAX package, but with no host fallback: a failure
+            # raises.  Tie order may differ from the host sort; run
+            # structure (hence counts and .tok bytes) is identical.
+            from ..ops.device_sort import device_sorted_windows
+            order, first_diff = device_sorted_windows(data, n, width, device)
+            self.order_u32 = order
+            self.first_diff_u8 = first_diff
         if order is None:
             try:
                 from .. import native

@@ -33,7 +33,7 @@ from ..ops.tables import (CandidateTables, build_meta_planes, flat_tables,
 class Superset:
     """A prepared superset: its vocabulary, the dictionary index of each
     token, its hash placement, and the tokenizer that holds its match
-    tables on the scoring device and runs the dispatch chain."""
+    tables on the (first) scoring device and runs the dispatch chain."""
     vocab: object
     index: dict
     hashmatch: HashMatchTables
@@ -48,6 +48,15 @@ def candidate_runtime_state(sup: Superset, cand) -> CandidateTables:
     delete id (``.delete_token``).  Raises ValueError for a candidate that does not fit the superset:
     another delete config, charset or unk id, a token the superset lacks,
     or a dictionary order the superset's does not give."""
+    return CandidateTables(sup.tokenizer.tables,
+                           *candidate_host_state(sup, cand))
+
+
+def candidate_host_state(sup: Superset, cand) -> tuple:
+    """``candidate_runtime_state``'s host work, once a candidate: the
+    arguments after the superset's tables of ``CandidateTables``, which
+    uploads them to the device of the tables it is given (one call for
+    each scoring slot)."""
     v_sup = sup.vocab
     if ((cand.delete_token != DOES_NOT_EXIST)
             != (v_sup.delete_token != DOES_NOT_EXIST)
@@ -77,7 +86,6 @@ def candidate_runtime_state(sup: Superset, cand) -> CandidateTables:
     rank = (np.cumsum(alive) - 1).astype(np.int32)
     rank[~alive] = 0
     planes, bb = build_meta_planes(cand)
-    return CandidateTables(sup.tokenizer.tables, cand,
-                           flat_tables(sup.hashmatch, alive),
-                           smem_scalars(sup.hashmatch, alive),
-                           planes.reshape(2, -1), bb, ids3(cand), rank)
+    return (cand, flat_tables(sup.hashmatch, alive),
+            smem_scalars(sup.hashmatch, alive), planes.reshape(2, -1), bb,
+            ids3(cand), rank)

@@ -8,9 +8,16 @@ scorers:
   - "cuda":   candidates scored on the device by ``GpuCandidateScorer``
     (a subclass of ``CandidateScorer``), armed once on a superset of every
     token the run can use.
-The JAX package's "tpu" backend (its mesh-sharded Pallas fast path and
-VMEM arming) is not copied: asking for it raises (ROADMAP.md §1 item 10).
-Its REMAP mode is copied as the one mode of every superset (the JAX
+The JAX package's "tpu" backend (its mesh-sharded Pallas fast path over
+every local device) is the "cuda" backend here: asking for "tpu" raises
+and says so.  "cuda" scores on every visible card unless ``device`` names
+one ("cuda:k") or a list of scoring slots (``["cuda:0", "cuda:1"]``,
+``["cpu", "cpu"]``); in a run of several processes joined by
+``parallel/multihost.py::init_distributed`` each rank scores its share on
+its own card and the sums are all-reduced: every rank makes the same
+deletions from the same seed (rank 0's, where the config has none), and
+only rank 0 writes files.  Its VMEM arming is not copied.  Its REMAP
+mode is copied as the one mode of every superset (the JAX
 package arms it only for supersets whose planes its kernels cannot
 hold): each candidate is matched on the superset's masked match tables
 and decided, followed and resolved on tables of its own size, so
@@ -40,14 +47,17 @@ the reference's select loop.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
 import random
+import tempfile
 import threading
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..core import capcode as cc
 from ..core.normalize import Normalizer
@@ -56,10 +66,12 @@ from ..utils.runes import decode_utf8
 from ..core.tokenmeta import DOES_NOT_EXIST, is_alphanum_tm
 from ..ops import tables
 from ..ops.hashmatch import build_hashmatch
-from ..ops.scan import GpuTokenizer, check_device
-from ..parallel.score import score_strips
+from ..ops.scan import GpuTokenizer
+from ..parallel import multihost
+from ..parallel.score import Slot, score_slots, score_strips
 from .getalltokens import load_tokens_file, save_tokens_with_scores
-from .score_helpers import Superset, candidate_runtime_state
+from .score_helpers import (Superset, candidate_host_state,
+                            candidate_runtime_state)
 
 log = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
 
@@ -159,7 +171,14 @@ class GpuCandidateScorer(CandidateScorer):
     repaired there (``parallel/score.py``), counted in ``repairs``.
     With ``pool`` (as ``train_vocab`` builds it), ``set_specials`` also
     prepares ``pool`` plus the specials.  ``score`` may run from several
-    threads: each call builds its own candidate tables."""
+    threads: each call builds its own candidate tables.
+
+    ``device``: the scoring slots (``multihost.local_devices``): "cuda" is
+    every visible card, "cuda:k" one, a list one slot per entry.  With
+    several slots, or in a process group of several ranks (``world``),
+    each slot arms its own copy of the superset's tables from the one
+    placement and every candidate is split over the slots of every rank
+    (``parallel/score.py::score_slots``); the scores equal one device's."""
 
     def __init__(self, charset, using_capcode, norm_flag, backend="cuda",
                  device="cuda", pool=None):
@@ -167,7 +186,10 @@ class GpuCandidateScorer(CandidateScorer):
             raise ValueError(f"GpuCandidateScorer scores with backend "
                              f"'cuda', not {backend!r}")
         super().__init__(charset, using_capcode, norm_flag, backend)
-        self.device = check_device(device)
+        self.devices = multihost.local_devices(device)
+        self.device = self.devices[0]
+        self.rank, self.world = multihost.process_info()
+        self._slots = None
         self.repairs = 0
         self._pool = pool
         self._sup = None
@@ -199,15 +221,22 @@ class GpuCandidateScorer(CandidateScorer):
             hashmatch_tables = build_hashmatch(
                 v_sup.tokens, space_prefix=tables.space_prefix(v_sup))
         hashmatch_tables = tables.from_reference_tables(hashmatch_tables)
-        tk = GpuTokenizer(v_sup, chunk=CHUNK, device=self.device,
-                          hashmatch_tables=hashmatch_tables, match_only=True)
+        tks = [GpuTokenizer(v_sup, chunk=CHUNK, device=d,
+                            hashmatch_tables=hashmatch_tables,
+                            match_only=True) for d in self.devices]
         self._sup = Superset(
             vocab=v_sup,
             index={bytes(t): i for i, t in enumerate(v_sup.tokens)},
-            hashmatch=hashmatch_tables, tokenizer=tk)
-        log.info("cuda trainer armed on %s: superset %d tokens, delete=%s, "
-                 "remap=True", self.device, len(v_sup.tokens),
-                 v_sup.delete_token != DOES_NOT_EXIST)
+            hashmatch=hashmatch_tables, tokenizer=tks[0])
+        if len(tks) > 1 or self.world > 1:
+            for d in self.devices:     # the slots' streams see the tables
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+            self._slots = [Slot(tk) for tk in tks]
+        log.info("cuda trainer armed on %s (rank %d of %d): superset %d "
+                 "tokens, delete=%s, remap=True",
+                 ", ".join(map(str, self.devices)), self.rank, self.world,
+                 len(v_sup.tokens), v_sup.delete_token != DOES_NOT_EXIST)
 
     def score(self, cand, datasets: list[bytes]):
         """(scores int64 [n_ids], tokens in text, set of missing byte
@@ -215,9 +244,14 @@ class GpuCandidateScorer(CandidateScorer):
         if self._sup is None:
             raise RuntimeError("GpuCandidateScorer.prepare was not called")
         n_ids = len(cand.reverse)
-        tabs = candidate_runtime_state(self._sup, cand)
-        scores, n_tokens, miss_mask, repairs = score_strips(
-            self._sup.tokenizer, tabs, datasets, n_ids)
+        if self._slots is None:
+            tabs = candidate_runtime_state(self._sup, cand)
+            scores, n_tokens, miss_mask, repairs = score_strips(
+                self._sup.tokenizer, tabs, datasets, n_ids)
+        else:
+            scores, n_tokens, miss_mask, repairs = score_slots(
+                self._slots, candidate_host_state(self._sup, cand),
+                datasets, n_ids, self.rank, self.world)
         with self._count_lock:
             self.repairs += repairs
         return scores, n_tokens, {int(b) for b in np.nonzero(miss_mask)[0]}
@@ -356,16 +390,41 @@ def train_vocab(dataset: bytes, dictionary_path, results_dir,
                 config: TrainConfig, device="cuda"):
     """Run the distillation training loop.  Returns the best .tok path.
     With ``config.backend == "cuda"`` every candidate is scored by a
-    ``GpuCandidateScorer`` on ``device`` ("cuda": the kernels; "cpu":
-    their plain PyTorch versions), armed on ``superset_pool`` of the
-    pool plus the loop's specials."""
+    ``GpuCandidateScorer`` on ``device`` ("cuda": the kernels on every
+    visible card; "cuda:k" one card; "cpu": their plain PyTorch versions;
+    a list: one scoring slot each), armed on ``superset_pool`` of the
+    pool plus the loop's specials.
+
+    In a process group of several ranks (``parallel/multihost.py``) every
+    rank calls it with the same arguments: the scorer splits each
+    candidate over the ranks and all-reduces its sums, so every rank makes
+    the same deletions, from rank 0's seed where ``config`` has none.  Only
+    rank 0 writes to ``results_dir``; the others keep the files the loop
+    reads back in a temporary directory, and return rank 0's path."""
     cfg = config
     if cfg.backend not in BACKENDS:
         raise ValueError(f"backend {cfg.backend!r} is not one of {BACKENDS}; "
                          "the JAX package's mesh-sharded 'tpu' backend is "
-                         "not ported (ROADMAP.md §1 item 10)")
+                         "the 'cuda' backend here, which scores on every "
+                         "visible card (or the devices given)")
+    rank, world = multihost.process_info()
+    if world > 1 and cfg.seed is None:
+        seed = random.SystemRandom().randrange(1 << 62) if rank == 0 else 0
+        cfg = dataclasses.replace(
+            cfg, seed=int(multihost.all_reduce_sum(np.array([seed]))[0]))
+    if rank == 0:
+        return _train_vocab(dataset, dictionary_path, results_dir, cfg,
+                            device)
+    with tempfile.TemporaryDirectory(prefix=f"tm_rank{rank}_") as scratch:
+        best = _train_vocab(dataset, dictionary_path, scratch, cfg, device)
+    return best and os.path.join(results_dir, os.path.basename(best))
+
+
+def _train_vocab(dataset: bytes, dictionary_path, results_dir,
+                 cfg: TrainConfig, device):
+    """``train_vocab``'s loop, writing to ``results_dir``."""
     if cfg.backend == "cuda":
-        device = check_device(device)
+        multihost.local_devices(device)    # raises before any work
         pool = superset_pool(dictionary_path)
     rng = random.Random(cfg.seed)
     os.makedirs(results_dir, exist_ok=True)
@@ -652,7 +711,9 @@ def train_vocab(dataset: bytes, dictionary_path, results_dir,
         # masking (host numpy) against device scoring.
         from concurrent.futures import ThreadPoolExecutor
         _pool = None
-        if len(jobs_w) > 1:
+        # ranks of a process group score each candidate together, so they
+        # score candidates one at a time, in the same order
+        if len(jobs_w) > 1 and multihost.process_info()[1] == 1:
             workers_n = (min(4, len(jobs_w)) if cfg.backend == "native"
                          else 2)
             _pool = ThreadPoolExecutor(max_workers=workers_n)
