@@ -29,7 +29,12 @@ sort in turns), and the same two rounds with the scorer over two slots of
 the card and as two gloo processes on it (rounds, files and every
 candidate's scores equal; every trainer kernel launched in each
 process).  The reference-scale phase does the same as the trainer phase,
-for one round, on a pool whose superset holds more than 2^20 entries.  The pipeline phase runs
+for one round, on a pool whose superset holds more than 2^20 entries;
+then that superset vocabulary tokenizes the whole text with the wide
+token word (S = 21) through ``GpuTokenizer`` and through ``load(...)`` of
+its saved ``.vocab`` ("device" and "auto" routes), against native, each
+kernel against its plain version at S = 21, with times.  The pipeline
+phase runs
 getalltokens, trainvocab (cuda against native) and exportvocab from the
 shell, then serves the exported vocabulary through ``load(...,
 device="cuda")`` and ``load_multiprocess_safe`` (its server on the
@@ -43,6 +48,7 @@ repository around it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
 import logging
@@ -276,13 +282,20 @@ def stage_pairs(vocab, raw: bytes, device, downstream: bool):
     same inputs, and its (bytes, operations).  ``downstream`` adds follow
     and compact, which need the dispatch to sync."""
     from tokenmonster_tpu_torch.corpus import main_dispatch
+    tk, buf, n = main_dispatch(vocab, raw, device, CHUNK, LANES)
+    return dispatch_pairs(tk, buf, n, downstream)
+
+
+def dispatch_pairs(tk, buf, n: int, downstream: bool):
+    """``stage_pairs`` on a dispatch ``tk`` staged: its buffer and valid
+    bytes."""
     from tokenmonster_tpu_torch.ops import stitch
     from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
     from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
     from tokenmonster_tpu_torch.ops.match import match, match_plain
     from tokenmonster_tpu_torch.ops.scan import OVERLAP_SCAN
-    tk, buf, n = main_dispatch(vocab, raw, device, CHUNK, LANES)
     tabs = tk.tables
+    S = tabs.w3_shift
     mm = match(buf, n, tabs)
     m, mb = mm if tabs.has_space else (mm, None)
     pairs = {
@@ -297,7 +310,8 @@ def stage_pairs(vocab, raw: bytes, device, downstream: bool):
         return buf.numel(), pairs, work, None
     ctl, tok = decide(m, mb, buf, n, tabs)
     t_rec = tk._t_rec(False)
-    recs, toks, done = follow(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec)
+    recs, toks, done = follow(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec,
+                              S)
     require(int(done) == 1, "main-path dispatch overflowed its window")
     _f, keep, _sn, ok, s, e = stitch.stitched_keep(recs, 0, LANES - 2, False)
     require(bool(ok), "main-path dispatch did not sync")
@@ -306,11 +320,12 @@ def stage_pairs(vocab, raw: bytes, device, downstream: bool):
     s, e = s.to(torch.int32), e.clamp(max=t_rec - 1).to(torch.int32)
     cap = t_rec * LANES
     pairs["follow"] = (
-        lambda: follow(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec),
-        lambda: follow_plain(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec))
+        lambda: follow(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec, S),
+        lambda: follow_plain(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec,
+                             S))
     pairs["compact"] = (
-        lambda: stitch.compact(recs, toks, s, e, q, cap),
-        lambda: stitch.compact_plain(recs, toks, s, e, q, cap))
+        lambda: stitch.compact(recs, toks, s, e, q, cap, S),
+        lambda: stitch.compact_plain(recs, toks, s, e, q, cap, S))
     work["follow"] = follow_work(recs)
     work["compact"] = compact_work(int(counts.sum()), LANES, cap)
     return (buf.numel(), pairs, work,
@@ -998,6 +1013,169 @@ def _popcount_share(words: torch.Tensor) -> float:
     return float(np.unpackbits(words.cpu().numpy().view(np.uint8)).mean())
 
 
+def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
+                         work: str) -> dict:
+    """The tokenizer at a vocabulary of 2^20 entries or more: the
+    reference-scale superset vocabulary (``sup``), whose token words take
+    the wide shift (S = 21).  Through ``GpuTokenizer`` on the arm's
+    placement (``GpuCandidateScorer.prepare`` builds it as
+    ``upload_tables`` would, space-stripped entries included), then saved
+    and loaded with ``load(path, device="cuda")``, its route pinned to
+    "device" and then "auto": the ids of the whole text against native
+    (arrays and FNV-1a 64, missing counts) on every call, no host
+    fallback; each kernel against its plain version on one dispatch, then
+    times.  Returns per kernel its numbers at this vocabulary."""
+    from unittest import mock
+
+    import tokenmonster_tpu_torch as tt
+    from tokenmonster_tpu_torch.native import NativeVocab
+    from tokenmonster_tpu_torch.ops import _build, tables
+    from tokenmonster_tpu_torch.ops.scan import MARGIN, GpuTokenizer
+
+    v = sup.vocab
+    n_ent = len(v.tokens)
+    require(tables.MAX_ENTRIES <= n_ent <= tables.placement_limit(),
+            f"{n_ent} entries: not a vocabulary of the wide word")
+    require(sup.hashmatch.has_space == (tables.space_prefix(v) is not None),
+            "the arm's placement is not the one upload_tables builds")
+    t0 = time.perf_counter()
+    wtk = GpuTokenizer(v, device=dev, hashmatch_tables=sup.hashmatch)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    tabs = wtk.tables
+    require(tabs.w3_shift == 21, f"token words at shift {tabs.w3_shift}")
+    tab_bytes = nbytes(*tabs.buffers())
+    nv = NativeVocab(v)
+    want, wmiss = nv.tokenize(text)
+    h_want = fnv1a64(want)
+    print(f"wide tokenizer: the superset vocabulary, {n_ent} entries, "
+          f"delete token {tabs.has_delete}, token words at S = "
+          f"{tabs.w3_shift}; tables uploaded in {up_s:.3f} s on the arm's "
+          f"placement, {tab_bytes} B on the card [{card}]")
+
+    missing_seen = []
+    tokenize = GpuTokenizer.tokenize
+
+    def recording(self, data):
+        res = tokenize(self, data)
+        missing_seen.append(res[1])
+        return res
+
+    def held(ids, what: str) -> None:
+        ids32 = np.asarray(ids, np.uint32)
+        require(np.array_equal(ids32, want), f"{what}: ids differ from "
+                                             "native")
+        h = fnv1a64(ids32)
+        require(h == h_want, f"{what}: fnv differs from native")
+        require(missing_seen[-1] == wmiss, f"{what}: missing "
+                f"{missing_seen[-1]}, native {wmiss}")
+        print(f"{what}: {len(ids32)} ids, fnv1a64 {h:016x} (native "
+              f"{h_want:016x}), missing {missing_seen[-1]} (native {wmiss})")
+
+    path = os.path.join(work, "superset.vocab")
+    t0 = time.perf_counter()
+    v.save(path)
+    vocab = tt.load(path, device="cuda", route="device")
+    load_s = time.perf_counter() - t0
+    _build.reset_launches()
+    with mock.patch.object(GpuTokenizer, "tokenize", recording):
+        ids, _missing = wtk.tokenize(text)
+        held(ids, f"GpuTokenizer, {len(text)} normalized bytes")
+        t0 = time.perf_counter()
+        ids = vocab.tokenize(raw)
+        first_s = time.perf_counter() - t0
+        require(vocab.last_route == "device", f"route {vocab.last_route}")
+        held(ids, f"load(route=\"device\"), {len(raw)} raw bytes")
+        vocab.route = "auto"
+        ids = vocab.tokenize(raw)
+        if vocab.last_route == "native":
+            missing_seen.append(wmiss)    # native: its own count
+        held(ids, f"load(route=\"auto\"), picked {vocab.last_route}")
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    api_tk = vocab._tpu
+    require(wtk.host_fallbacks == 0 == api_tk.host_fallbacks,
+            f"a host fallback: {wtk.fallbacks}, {api_tk.fallbacks}")
+    require(api_tk.tables.w3_shift == 21, "load() took another shift")
+    require(all(launches[k] > 0 for k in TPU_KERNELS),
+            f"a kernel was not launched: {launches}")
+    print(f"wide tokenizer: saved and loaded in {load_s:.3f} s, first "
+          f"device call {first_s:.3f} s (its placement built); route "
+          f"counts {vocab.route_counts}; launches {launches} [{card}]")
+
+    _n, lanes, bufs = wtk.stage(text[:(LANES - 1) * wtk.chunk + MARGIN])
+    require(lanes == LANES, f"{lanes} lanes staged")
+    N, pairs, work_of, plan = dispatch_pairs(wtk, bufs[0][0], bufs[0][1],
+                                             True)
+    errs = {name: compare(pairs, name) for name in TPU_KERNELS}
+    print(f"wide tokenizer, N={N}, {LANES} lanes x {CHUNK}, S = 21: "
+          f"max_abs_err {errs}")
+    require(not any(errs.values()), f"kernels disagree at S = 21: {errs}")
+    out = {}
+    for name in TPU_KERNELS:
+        kernel, plain = pairs[name]
+        b_ms, b_by = bound(*work_of[name])
+        ms = cuda_ms(kernel)
+        device_ms = cuda_ms(kernel, queued=True)
+        plain_ms = cuda_ms(plain, calls=1, repeat=3)
+        out[name] = {"wide_launches": launches[name],
+                     "wide_max_abs_err": errs[name], "wide_ms": ms,
+                     "wide_device_ms": device_ms, "wide_plain_ms": plain_ms,
+                     "wide_bound_ms": b_ms, "wide_bound_by": b_by}
+        print(f"{name}: {n_ent}-entry vocabulary kernel {ms:.4f} ms from "
+              f"the host ({device_ms:.4f} on the card alone), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{work_of[name][0]} B, {work_of[name][1]} ops), roofline "
+              f"{100 * b_ms / ms:.2f}% ({100 * b_ms / device_ms:.2f}% of "
+              f"the card alone) [{card}]")
+    print(f"shared memory at the wide vocabulary: {plan}")
+
+    # the shift alone: decide on the same dispatch and tables at S = 20
+    # (its words wrong for indices past 2^20; timed only), in turns
+    from tokenmonster_tpu_torch.ops.decide import decide
+    from tokenmonster_tpu_torch.ops.match import match
+    buf, n = bufs[0][0], bufs[0][1]
+    mm = match(buf, n, tabs)
+    m, mb = mm if tabs.has_space else (mm, None)
+    narrow = copy.copy(tabs)
+    narrow.w3_shift = 20
+    turns = {20: [], 21: []}
+    for s in (21, 20, 20, 21):
+        turns[s].append(cuda_ms(lambda: decide(m, mb, buf, n, narrow if
+                                               s == 20 else tabs),
+                                queued=True))
+    out["decide"]["wide_s20_device_ms"] = statistics.mean(turns[20])
+    out["decide"]["wide_s21_device_ms"] = statistics.mean(turns[21])
+    print(f"decide on the card alone, the same dispatch and tables: S = 21 "
+          f"{turns[21]} ms, S = 20 {turns[20]} ms (in turns 21, 20, 20, 21) "
+          f"[{card}]")
+
+    staged = wtk.stage(text)
+    wtk.tokenize_staged(staged)
+    chain_s = host_seconds(lambda: wtk._run_staged(staged, False, tabs,
+                                                   wtk._compact, {}))
+    vocab.route = "device"
+    before = vocab.route_counts["device"]
+    e2e, nat = [], []
+    for _ in range(3):                         # in turns
+        t0 = time.perf_counter()
+        vocab.tokenize(raw)
+        e2e.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        nv.tokenize(text)
+        nat.append(time.perf_counter() - t0)
+    require(vocab.route_counts["device"] == before + 3,
+            "a timed call did not take the device route")
+    require(api_tk.host_fallbacks == 0, "a timed call fell back")
+    print(f"wide tokenizer: device chain {chain_s * 1e3:.3f} ms over "
+          f"{len(text)} normalized bytes "
+          f"({len(text) / chain_s / 1e6:.3f} MB/s); e2e load().tokenize "
+          f"{statistics.median(e2e):.3f} s over {len(raw)} raw bytes, "
+          f"native {statistics.median(nat):.3f} s on the normalized text "
+          f"({os.cpu_count()} host threads), medians of 3 in turns [{card}]")
+    return out
+
+
 def bigpool_phase(dev, card: str) -> dict:
     """The trainer at the reference configuration's pool scale: a
     getalltokens pool whose superset holds more than 2^20 entries, armed
@@ -1247,6 +1425,7 @@ def bigpool_phase(dev, card: str) -> dict:
               f"{native_s / BIG_ROUNDS:.3f} s, of which score calls "
               f"{sum(native_score_s) / BIG_ROUNDS:.3f} s ({os.cpu_count()} "
               f"host threads) [{card}]")
+        wide = wide_tokenizer_phase(dev, card, sup, raw, text, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1273,6 +1452,8 @@ def bigpool_phase(dev, card: str) -> dict:
               f"{100 * b_ms / ms:.2f}% ({100 * b_ms / device_ms:.2f}% of "
               f"the card alone) (N={t.buf.numel()}, {LANES} lanes, "
               f"{tables_of}) [{card}]")
+    for name, numbers in wide.items():
+        out.setdefault(name, {}).update(numbers)
     out["match"]["bigpool_filter_fill"] = fill
     out["decide"].update(bigpool_gather_ms=g_ms,
                          bigpool_gather_device_ms=g_device_ms,
@@ -1540,6 +1721,8 @@ def main() -> int:
     require(vocab.last_route == "device",
             f"the call took the {vocab.last_route} route")
     tk = vocab._tpu
+    require(tk.tables.w3_shift == 20,
+            f"token words at shift {tk.tables.w3_shift}, not 20")
     print(f"route {vocab.last_route}, launches {launches}, last_mode "
           f"{tk.last_mode}, fallbacks {tk.fallbacks}, dispatches "
           f"{len(tk._plan(len(norm))[1])}")

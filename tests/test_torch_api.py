@@ -105,39 +105,45 @@ def _at_max_entries(monkeypatch, v):
 
 def test_auto_route_sends_a_vocabulary_at_max_entries_to_native(
         monkeypatch):
-    """Under "auto" a vocabulary the device tables refuse for its size goes
-    to native, counted there, and the device tokenizer is never built;
-    "device" still raises, naming the roadmap item."""
+    """A vocabulary at the limit tokenizes on the device with the wide
+    token word (S = 21): under "auto" it is a device candidate like any
+    other, whose first calls probe the device route, and "device"
+    tokenizes it; ids equal to the JAX package's every call, each route
+    counted, no host fallback."""
     ref = tokenmonster_tpu.load(VOCAB)
     v = tokenmonster_tpu_torch.load(VOCAB, device="cpu")
     _at_max_entries(monkeypatch, v)
     text = ENGLISH.decode() * 25
-    for k in (1, 2):
+    for _ in range(3):
         np.testing.assert_array_equal(v.tokenize(text), ref.tokenize(text))
-        assert v.last_route == "native"
-        assert v.route_counts == {"device": 0, "native": k}
-    assert v._tpu is None
+    assert v.route_counts["device"] >= 1
+    assert sum(v.route_counts.values()) == 3
+    assert v._tpu.tables.w3_shift == 21 and v._tpu.host_fallbacks == 0
     v.route = "device"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        v.tokenize(text)
-    assert v.route_counts == {"device": 0, "native": 2}
+    before = v.route_counts["device"]
+    np.testing.assert_array_equal(v.tokenize(text), ref.tokenize(text))
+    assert v.last_route == "device"
+    assert v.route_counts["device"] == before + 1
 
 
 def test_auto_route_at_max_entries_in_a_batch(monkeypatch):
-    """The batch path routes each item the same way: every item, small or
-    large, on native."""
+    """The batch path routes each item the same way: every item a device
+    candidate, the first on the device route."""
     ref = tokenmonster_tpu.load(VOCAB)
     v = tokenmonster_tpu_torch.load(VOCAB, device="cpu")
     _at_max_entries(monkeypatch, v)
     texts = [ENGLISH.decode() * k for k in (1, 9, 30)]
     for got, t in zip(v.tokenize(texts), texts):
         np.testing.assert_array_equal(got, ref.tokenize(t))
-    assert v.route_counts == {"device": 0, "native": 3}
+    assert v.route_counts["device"] >= 1
+    assert sum(v.route_counts.values()) == 3
+    assert v._tpu.tables.w3_shift == 21 and v._tpu.host_fallbacks == 0
 
 
 def test_server_serves_a_vocabulary_at_max_entries(monkeypatch):
     """The server loads through ``load``: a bulk request for a vocabulary
-    at the limit is answered on native, bytes equal to the JAX server's."""
+    at the limit is answered through the device route (S = 21), bytes
+    equal to the JAX server's."""
     import struct
 
     from tokenmonster_tpu import server as jserver
@@ -158,5 +164,6 @@ def test_server_serves_a_vocabulary_at_max_entries(monkeypatch):
         vid = struct.unpack_from("<I", load, 1)[0]
         got[name] = srv.handle(1, vid, req)
         if name == "port":
-            assert srv.vocabs[vid].route_counts == {"device": 0, "native": 1}
+            assert srv.vocabs[vid].route_counts == {"device": 1, "native": 0}
+            assert srv.vocabs[vid]._tpu.tables.w3_shift == 21
     assert got["port"] == got["jax"]

@@ -30,7 +30,8 @@ from tokenmonster_tpu_torch.train.score_helpers import candidate_runtime_state
 from tokenmonster_tpu_torch.train.trainvocab import GpuCandidateScorer
 
 from torch_cases import (LONG_KEYS, ZERO_STEP_TEXT, ZERO_STEP_TOKENS,
-                         edge_text, edge_vocab, native_score, zero_step_vocab)
+                         edge_text, edge_vocab, native_score, wide_matches,
+                         wide_tables, zero_step_vocab)
 
 pytestmark = pytest.mark.gpu
 
@@ -250,12 +251,12 @@ def _dirty(n_words, device):
     del t
 
 
-def _compact_both(recs, toks, s, e, q, out_len):
+def _compact_both(recs, toks, s, e, q, out_len, w3_shift=tables.W3_SHIFT):
     _dirty(out_len, recs.device)
     before = _build.launches["compact"]
-    got = stitch.compact(recs, toks, s, e, q, out_len)
+    got = stitch.compact(recs, toks, s, e, q, out_len, w3_shift)
     assert _build.launches["compact"] == before + 1
-    want = stitch.compact_plain(recs, toks, s, e, q, out_len)
+    want = stitch.compact_plain(recs, toks, s, e, q, out_len, w3_shift)
     torch.cuda.synchronize()
     _equal(got, want)
     return want
@@ -335,6 +336,53 @@ def test_follow_and_compact_kernels_equal_plain(dispatch, full):
     q = (counts.cumsum(0) - counts - s).to(torch.int32)
     s, e = s.to(torch.int32), e.clamp(max=t_rec - 1).to(torch.int32)
     _compact_both(recs, toks, s, e, q, t_rec * LANES)
+
+
+def test_wide_words_on_card_equal_plain(dispatch):
+    """The wide token word (S = 21) of a vocabulary of more than 2^20
+    entries: decide on tables whose indices are all moved past 2^20
+    (``torch_cases.wide_tables``), then follow and compact at S = 21,
+    each kernel equal to its plain version at the main path's shapes."""
+    tk, buf, n = dispatch
+    m, mb = (wide_matches(w) for w in _decisions(tk, buf, n))
+    wide = wide_tables(tk.tables)
+    got = decide(m, mb, buf, n, wide)
+    want = decide_plain(m, mb, buf, n, wide)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    ctl, tok = got
+    assert ((tok.long() & 0x1FFFFF) >= 1 << 20).any()
+    t_rec = tk._t_rec(False)
+    got = follow(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec, 21)
+    want = follow_plain(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec, 21)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    recs, toks, _done = got
+    _f, keep, _sn, ok, s, e = stitch.stitched_keep(recs, 0, LANES - 2,
+                                                   False)
+    assert bool(ok)
+    counts = keep.sum(0)
+    q = (counts.cumsum(0) - counts - s).to(torch.int32)
+    s, e = s.to(torch.int32), e.clamp(max=t_rec - 1).to(torch.int32)
+    _compact_both(recs, toks, s, e, q, t_rec * LANES, 21)
+
+
+def test_wide_tokenizer_on_card_equals_native(cuda, monkeypatch):
+    """A vocabulary at the (lowered) limit tokenizes on the card at S =
+    21, a multi-dispatch text equal to native, every kernel launched, no
+    host fallback."""
+    v = _real32k()
+    monkeypatch.setattr(tables, "MAX_ENTRIES", len(v.tokens))
+    raw, _dropped = stdlib_text(v, 3 << 20)
+    data = v.normalize(raw)
+    tk = GpuTokenizer(v, device=cuda)
+    assert tk.tables.w3_shift == 21
+    _build.reset_launches()
+    ids, missing = tk.tokenize(data)
+    want, wmiss = NativeVocab(v).tokenize(data)
+    np.testing.assert_array_equal(ids, want)
+    assert missing == wmiss == 0 and tk.host_fallbacks == 0
+    assert all(c > 0 for c in tk.launches.values()), tk.launches
 
 
 def test_tokenizer_on_card_equals_native(cuda):

@@ -17,11 +17,11 @@ from tokenmonster_tpu_torch.ops import _build, stitch
 from tokenmonster_tpu_torch.ops.decide import decide_plain
 from tokenmonster_tpu_torch.ops.follow import follow_plain, window
 from tokenmonster_tpu_torch.ops.match import match_args, match_plain
-from tokenmonster_tpu_torch.ops.tables import upload_tables
+from tokenmonster_tpu_torch.ops.tables import W3_SHIFT, upload_tables
 
 from torch_cases import (OVERLAP, VOCABS, ZERO_STEP_TEXT, edge_text,
-                         edge_vocab, hashmatch_tables, text_for,
-                         zero_step_vocab)
+                         edge_vocab, hashmatch_tables, text_for, wide_matches,
+                         wide_tables, zero_step_vocab)
 
 N = 4096
 
@@ -64,6 +64,25 @@ def stages(request):
     mm = match_plain(buf, n, dt)
     m, mb = mm if dt.has_space else (mm, None)
     ctl, tok = decide_plain(m, mb, buf, n, dt)
+    return name, dt, buf, n, m, mb, ctl, tok
+
+
+@pytest.fixture(scope="module", params=["capcode", "unk"])
+def wide_stages(request):
+    """The seeded text of ``stages`` decided at S = 21 on tables whose
+    dictionary indices are moved up by 2^20 (``torch_cases.wide_tables``),
+    as a vocabulary of more than 2^20 entries decides it."""
+    name = request.param
+    v = VOCABS[name]()
+    dt = wide_tables(upload_tables(v, hashmatch_tables(v), "cpu"))
+    data = text_for(name, v, N - 700, seed=7)
+    buf = torch.zeros(N, dtype=torch.uint8)
+    buf[:len(data)] = torch.tensor(list(data), dtype=torch.uint8)
+    n = len(data)
+    mm = match_plain(buf, n, upload_tables(v, hashmatch_tables(v), "cpu"))
+    m, mb = (wide_matches(w) for w in (mm if dt.has_space else (mm, None)))
+    ctl, tok = decide_plain(m, mb, buf, n, dt)
+    assert (tok.long() & 0x1FFFFF >= 1 << 20).any()
     return name, dt, buf, n, m, mb, ctl, tok
 
 
@@ -119,7 +138,7 @@ def _decide_host(lib, dt, buf, n, m, mb, tile=None):
         bb=dt.bb.data_ptr(), ctl=got_c.data_ptr(), tok=got_t.data_ptr(),
         N=N, n_entries=dt.entries.shape[1], n=n,
         has_delete=int(dt.has_delete), has_unk=int(dt.has_unk),
-        unk_token=dt.unk_token, lil_off=dt.lil_off)
+        unk_token=dt.unk_token, lil_off=dt.lil_off, w3_shift=dt.w3_shift)
     lib.tm_decide_host(ctypes.byref(args), tile or lib.tm_decide_tile())
     return got_c, got_t
 
@@ -186,7 +205,8 @@ def test_zero_advance_step_host_equals_plain(host_lib, tile):
     assert ((pos[1:] == pos[:-1]) & (want[0][1:] != 0)).any()
 
 
-def _follow_host(lib, ctl, tok, n, chunk, L, t_rec, tw=None):
+def _follow_host(lib, ctl, tok, n, chunk, L, t_rec, tw=None,
+                 w3_shift=W3_SHIFT):
     recs = torch.full((t_rec, L), -1, dtype=torch.int32)
     toks = torch.full((t_rec, L), -1, dtype=torch.int32)
     done = torch.ones(1, dtype=torch.int32)
@@ -194,7 +214,8 @@ def _follow_host(lib, ctl, tok, n, chunk, L, t_rec, tw=None):
         ctl=ctl.data_ptr(), tok=tok.data_ptr(), recs=recs.data_ptr(),
         toks=toks.data_ptr(), done_all=done.data_ptr(), N=ctl.shape[-1],
         rows=1 if ctl.dim() == 1 else ctl.shape[0], n=n, chunk=chunk,
-        overlap=OVERLAP, W=window(chunk, OVERLAP), L=L, t_rec=t_rec)
+        overlap=OVERLAP, W=window(chunk, OVERLAP), L=L, t_rec=t_rec,
+        w3_shift=w3_shift)
     lib.tm_follow_host(ctypes.byref(args), tw or args.W)
     return recs, toks, done[0]
 
@@ -224,7 +245,8 @@ def test_follow_host_tiles_equal_plain(host_lib, stages, tw):
         assert int(want[2]) == 1
 
 
-def _compact_host(lib, recs, toks, s, e, q, out_len, tiles=None):
+def _compact_host(lib, recs, toks, s, e, q, out_len, tiles=None,
+                  w3_shift=W3_SHIFT):
     """The harness's compact into a buffer of ones: the kernel's code
     writes every word, the zeros too."""
     T, L = recs.shape
@@ -232,7 +254,7 @@ def _compact_host(lib, recs, toks, s, e, q, out_len, tiles=None):
     args = _build.CompactArgs(
         recs=recs.data_ptr(), toks=toks.data_ptr(), s=s.data_ptr(),
         e=e.data_ptr(), q=q.data_ptr(), out=got.data_ptr(), out_len=out_len,
-        T=T, L=L)
+        T=T, L=L, w3_shift=w3_shift)
     if tiles is None:
         recs_t, zero = ctypes.c_int(0), ctypes.c_int(0)
         lanes_t = lib.tm_compact_tile(ctypes.byref(recs_t),
@@ -298,3 +320,40 @@ def test_compact_host_odd_ranges_equal_plain(host_lib, L, tiles):
     got = _compact_host(host_lib, recs, toks, s, e, q, out_len, tiles)
     assert torch.equal(got, want)
     assert (want != 0).any() and (want == 0).any()
+
+
+@pytest.mark.parametrize("tile", [None, 61])
+def test_decide_host_at_s21_equals_plain(host_lib, wide_stages, tile):
+    """The wide token word: idx | w3 << 21, literals at 3 << 21, with
+    indices past 2^20."""
+    _name, dt, buf, n, m, mb, ctl, tok = wide_stages
+    got_c, got_t = _decide_host(host_lib, dt, buf, n, m, mb, tile)
+    assert torch.equal(got_c.reshape(ctl.shape), ctl)
+    assert torch.equal(got_t.reshape(tok.shape), tok)
+    assert ((tok.long() >> 22) & 1).any()
+
+
+@pytest.mark.parametrize("tw", [None, 7])
+def test_follow_host_at_s21_equals_plain(host_lib, wide_stages, tw):
+    """Token words of 23 bits through the follow tile's packed word."""
+    _name, _dt, _buf, n, _m, _mb, ctl, tok = wide_stages
+    want = follow_plain(ctl, tok, n, 32, 128, OVERLAP, 256, 21)
+    got = _follow_host(host_lib, ctl, tok, n, 32, 128, 256, tw, 21)
+    for w, g in zip(want, got):
+        assert torch.equal(g, w)
+    assert ((want[1].long() >> 22) & 1).any()
+
+
+@pytest.mark.parametrize("tiles", [None, (5, 7, 64)])
+def test_compact_host_at_s21_equals_plain(host_lib, wide_stages, tiles):
+    """The delete marker at bit 23, above a 23-bit token word."""
+    _name, _dt, _buf, n, _m, _mb, ctl, tok = wide_stages
+    chunk, L, t_rec = 32, 128, 256
+    recs, toks, _done = follow_plain(ctl, tok, n, chunk, L, OVERLAP, t_rec,
+                                     21)
+    s, e, q, count = _kept(recs, 0, min(-(-n // chunk), L) - 1, True)
+    out_len = t_rec * L
+    want = stitch.compact_plain(recs, toks, s, e, q, out_len, 21)
+    got = _compact_host(host_lib, recs, toks, s, e, q, out_len, tiles, 21)
+    assert torch.equal(got, want)
+    assert count > 0

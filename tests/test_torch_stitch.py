@@ -112,7 +112,7 @@ def test_restart_point(case):
              [(6 << 4) | tok, (8 << 4) | tok, (10 << 4) | tok, 0, 0],
              [(10 << 4) | tok, (12 << 4) | tok, 0, 0, 0]]
     grid = torch.tensor(lanes, dtype=torch.int32).T.contiguous()
-    assert tstitch.restart_point(grid, 0, 2, True) == (0, 5)
-    assert tstitch.restart_point(grid, 3, 2, True) == (0, 5)
+    assert tstitch.restart_point(grid, 0, 2, True) == (0, 5, 0)
+    assert tstitch.restart_point(grid, 3, 2, True) == (0, 5, 0)
     with pytest.raises(RuntimeError, match="no record with fd 0"):
         tstitch.restart_point(grid, 4, 2, True)

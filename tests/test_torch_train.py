@@ -27,8 +27,8 @@ from tokenmonster_tpu_torch.train import trainvocab as port
 from tokenmonster_tpu_torch.train.trainvocab import GpuCandidateScorer
 
 from torch_cases import (VOCABS, ZERO_STEP_TEXT, ZERO_STEP_TOKENS, candidate,
-                         drop_sets, heal_jax_native, native_score, text_for,
-                         with_unk, zero_step_vocab)
+                         drop_sets, heal_jax_native, native_ids,
+                         native_score, text_for, with_unk, zero_step_vocab)
 from torch_cases import jax_native  # noqa: F401 (autouse fixture)
 
 LOGGERS = ("tokenmonster_tpu.trainvocab", "tokenmonster_tpu_torch.trainvocab")
@@ -188,12 +188,13 @@ def test_candidate_that_does_not_fit_raises():
 
 
 def test_superset_of_2_20_entries_raises(monkeypatch):
-    """Token words pack 20-bit dictionary indices: a superset of 2^20
-    entries or more arms as any other, in REMAP mode (match tables only,
-    its candidates decided on tables of their own size), and what still
-    raises is a candidate at the limit, and a tokenizer of a vocabulary at
-    the limit, before anything is built.  Shown with the limit lowered to
-    this small pool."""
+    """A superset of 2^20 entries or more arms as any other, in REMAP mode
+    (match tables only, its candidates decided on tables of their own
+    size, whose token words pack 20-bit indices): what still raises is a
+    candidate at the limit, and tokenizing on the match-only superset
+    tables.  A tokenizer of the same vocabulary uploads its whole tables
+    with the wide token word (S = 21) and tokenizes as native does.
+    Shown with the limit lowered to this small pool."""
     assert tables.MAX_ENTRIES == 1 << 20
     v = VOCABS["plain"]()
     monkeypatch.setattr(tables, "MAX_ENTRIES", len(v.tokens))
@@ -208,10 +209,15 @@ def test_superset_of_2_20_entries_raises(monkeypatch):
     assert got[1:] == want[1:]
     with pytest.raises(NotImplementedError, match="2\\^20"):
         sc.score(sc.build(list(v.tokens)), strips)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="match-only"):
         sc._sup.tokenizer.tokenize(strips[0])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        GpuTokenizer(v, device="cpu")        # raises before any upload
+    tk = GpuTokenizer(v, device="cpu")
+    assert tk.tables.w3_shift == 21
+    data = text_for("plain", v, 1500, seed=2, misses=False)
+    ids, missing = tk.tokenize(data)
+    want_ids, want_missing = native_ids(v, data)
+    np.testing.assert_array_equal(ids, want_ids)
+    assert missing == want_missing and tk.host_fallbacks == 0
 
 
 SEED_TEXT = (b"The quick brown fox jumps over the lazy dog. The dog sleeps "

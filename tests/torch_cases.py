@@ -6,6 +6,7 @@ JAX package's native library safely before a test reaches it."""
 import fcntl
 import os
 import time
+import types
 
 import numpy as np
 import pytest
@@ -17,7 +18,9 @@ from tokenmonster_tpu_torch import native as tnative
 from tokenmonster_tpu_torch.train.trainvocab import CandidateScorer
 from tokenmonster_tpu_torch.ops.decide import decide
 from tokenmonster_tpu_torch.ops.match import match
-from tokenmonster_tpu_torch.ops.tables import space_prefix, upload_tables
+from tokenmonster_tpu_torch.ops.tables import (W3_SHIFT_WIDE, decide_entries,
+                                              meta_width, space_prefix,
+                                              upload_tables)
 
 OVERLAP = 128     # OVERLAP_SCAN of both packages
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -191,6 +194,35 @@ def decisions(name, n_bytes, N, misses=True):
         m, mb = match(buf, n, dt), None
     ctl, tok = decide(m, mb, buf, n, dt)
     return ctl, tok, n
+
+
+WIDE_OFFSET = 1 << 20
+
+
+def wide_tables(dt, off: int = WIDE_OFFSET):
+    """``dt``'s decide and id tables with S = 21 and every dictionary index
+    moved up by ``off`` (below it, entries of zero planes): what decide
+    and id resolution read for the same text in a vocabulary of more than
+    ``off`` entries, so ``off = 2^20`` sets every index's bit 20.  Match
+    words go with them through ``wide_matches``."""
+    n, dev = dt.meta.shape[1], dt.meta.device
+    meta = torch.zeros((2, meta_width(off + n)), dtype=torch.int32,
+                       device=dev)
+    meta[:, off:off + n] = dt.meta
+    ids3 = torch.zeros((off + dt.ids3.shape[0], 3), dtype=torch.int32,
+                       device=dev)
+    ids3[off:] = dt.ids3
+    out = types.SimpleNamespace(**{k: getattr(dt, k) for k in (
+        "bb", "has_delete", "has_unk", "unk_token", "delete_token",
+        "lil_off", "has_space")})
+    out.meta, out.ids3, out.w3_shift = meta, ids3, W3_SHIFT_WIDE
+    out.entries = decide_entries(meta, 2 if dt.has_delete else 1)
+    return out
+
+
+def wide_matches(m, off: int = WIDE_OFFSET):
+    """Match words (int32) with their indices moved up by ``off``."""
+    return None if m is None else torch.where(m != 0, m + (off << 6), m)
 
 
 def u32(t):

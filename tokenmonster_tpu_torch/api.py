@@ -323,15 +323,15 @@ class Vocab:
     def _tokenize_one(self, item) -> np.ndarray:
         """One input through the route ``route`` picks, recorded in
         ``last_route`` and ``route_counts``.  Under "auto" a vocabulary of
-        ``tables.MAX_ENTRIES`` entries or more, which the device tables
-        refuse (token words pack 20-bit indices), takes the native route;
-        "device" raises for it."""
+        more entries than a hash placement holds
+        (``tables.placement_limit``), which the device tables refuse,
+        takes the native route; "device" raises for it."""
         if isinstance(item, str):
             item = item.encode("utf-8")
         normalized = self._core.normalize(item)
         auto = self.route == "auto"
         candidate = (auto and len(normalized) >= self.TPU_THRESHOLD
-                     and len(self._core.tokens) < tables.MAX_ENTRIES)
+                     and len(self._core.tokens) <= tables.placement_limit())
         if self.route == "device" or (candidate
                                       and self._pick_route() == "tpu"):
             route, ids = "device", self._device_ids(normalized, timed=auto)

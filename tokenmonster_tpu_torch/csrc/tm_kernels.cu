@@ -43,10 +43,10 @@
 //         first token stands.
 // follow  replaces tokenmonster_tpu/ops/pallas_follow.py::make_follow_kernel.
 //         FOLLOW_LANES lanes per block.  The whole block copies each lane's
-//         window, w = ctl | tok << 10 of every fd row, into shared memory
-//         with 16-byte loads; then one thread per lane walks the serial
-//         chain there, a shared-memory read per step instead of two
-//         dependent global reads.  Its record writes, one word per lane and
+//         window, w = tmk::follow_pack(ctl, tok) of every fd row, into
+//         shared memory with 16-byte loads; then one thread per lane walks
+//         the serial chain there, a shared-memory read per step instead of
+//         two dependent global reads.  Its record writes, one word per lane and
 //         step, land side by side.  A window longer than the tile that fits
 //         (a bridge or repair lane of a long span) is walked tile by tile:
 //         lanes that leave their tile stop, the block refills those tiles
@@ -261,8 +261,10 @@ __device__ void fill_tile(const tmk::FollowArgs& a, int64_t start, int32_t k0, u
     uint4* d4 = (uint4*)dst;
     for (int32_t j = threadIdx.x; j < n4; j += blockDim.x) {
       const uint4 ca = __ldg(c0 + j), ta = __ldg(t0 + j), cb = __ldg(c1 + j), tb = __ldg(t1 + j);
-      d4[2 * j] = make_uint4(ca.x | (ta.x << 10), cb.x | (tb.x << 10), ca.y | (ta.y << 10), cb.y | (tb.y << 10));
-      d4[2 * j + 1] = make_uint4(ca.z | (ta.z << 10), cb.z | (tb.z << 10), ca.w | (ta.w << 10), cb.w | (tb.w << 10));
+      d4[2 * j] = make_uint4(tmk::follow_pack(ca.x, ta.x), tmk::follow_pack(cb.x, tb.x),
+                             tmk::follow_pack(ca.y, ta.y), tmk::follow_pack(cb.y, tb.y));
+      d4[2 * j + 1] = make_uint4(tmk::follow_pack(ca.z, ta.z), tmk::follow_pack(cb.z, tb.z),
+                                 tmk::follow_pack(ca.w, ta.w), tmk::follow_pack(cb.w, tb.w));
     }
   } else if (n4 > 0) {
     const uint4* c0 = (const uint4*)(a.ctl + q0);
@@ -270,7 +272,8 @@ __device__ void fill_tile(const tmk::FollowArgs& a, int64_t start, int32_t k0, u
     uint4* d4 = (uint4*)dst;
     for (int32_t j = threadIdx.x; j < n4; j += blockDim.x) {
       const uint4 ca = __ldg(c0 + j), ta = __ldg(t0 + j);
-      d4[j] = make_uint4(ca.x | (ta.x << 10), ca.y | (ta.y << 10), ca.z | (ta.z << 10), ca.w | (ta.w << 10));
+      d4[j] = make_uint4(tmk::follow_pack(ca.x, ta.x), tmk::follow_pack(ca.y, ta.y),
+                         tmk::follow_pack(ca.z, ta.z), tmk::follow_pack(ca.w, ta.w));
     }
   }
   for (int32_t i = 4 * n4 * rows + threadIdx.x; i < tw * rows; i += blockDim.x)

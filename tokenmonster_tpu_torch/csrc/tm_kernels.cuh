@@ -10,10 +10,15 @@
 //   match   M(p) = (idx << 6) | len, 0 = no match (Mb(p): len includes the
 //           virtual space prefix)
 //   decide  ctl = delta | fd'<<6 | has_tok<<7 | has_del<<8 | miss<<9
-//           tok = idx | w3<<20 (w3 == 3: literal id)
+//           tok = idx | w3<<S (w3 == 3: literal id)
 //   follow  rec = (pos << 4) | fd' | has_tok<<1 | has_del<<2 | miss<<3,
-//           tok = the 22-bit token word
-//   compact out[q_l + j] = tok | has_del<<22 for the kept records of lane l
+//           tok = the token word, its low S + 2 bits
+//   compact out[q_l + j] = tok | has_del<<(S + 2) for the kept records of
+//           lane l
+// S, the token word's shift (``w3_shift`` in the argument structs), is 20
+// below 2^20 dictionary entries, where the words are the JAX package's bit
+// for bit, and 21 from there up to the hash placement's limit of 2^21 - 2
+// entries (ops/tables.py::w3_shift); a compacted word fits 24 bits.
 //
 // The argument structs are mirrored field for field by ctypes.Structure
 // classes in ops/_build.py; change both together.
@@ -113,7 +118,7 @@ struct DecideArgs {
   int32_t has_unk;
   int32_t unk_token;
   int32_t lil_off;
-  int32_t pad_;
+  int32_t w3_shift;             // S: tok = idx | w3 << S
 };
 
 struct FollowArgs {
@@ -130,7 +135,7 @@ struct FollowArgs {
   int32_t W;                    // per-lane window (JAX kernel geometry)
   int32_t L;
   int32_t t_rec;
-  int32_t pad_;
+  int32_t w3_shift;             // S: token words keep their low S + 2 bits
 };
 
 struct CompactArgs {
@@ -143,6 +148,8 @@ struct CompactArgs {
   int64_t out_len;
   int32_t T;
   int32_t L;
+  int32_t w3_shift;             // S: the delete marker is bit S + 2
+  int32_t pad_;
 };
 
 TM_HD uint32_t byte_at(const uint8_t* t, int64_t N, int64_t q) {
@@ -671,8 +678,8 @@ TM_HD void decide_tile_at(const DecideArgs& a, const DecideNb* nb, int64_t p, in
   const int32_t delta_out = new_pos_rel < lo ? lo : (new_pos_rel > 63 ? 63 : new_pos_rel);
   const uint32_t ctl = (uint32_t)delta_out | (is_b ? (1u << 6) | (1u << 8) : 0u) |
                        (has_tok ? 1u << 7 : 0u) | (miss ? 1u << 9 : 0u);
-  const uint32_t tok = miss ? ((3u << 20) | (uint32_t)a.unk_token)
-                            : ((uint32_t)cur_idx | ((uint32_t)w3 << 20));
+  const uint32_t tok = miss ? ((3u << a.w3_shift) | (uint32_t)a.unk_token)
+                            : ((uint32_t)cur_idx | ((uint32_t)w3 << a.w3_shift));
   a.ctl[fd * a.N + p] = ctl;
   a.tok[fd * a.N + p] = tok;
 }
@@ -682,8 +689,9 @@ TM_HD void decide_tile_at(const DecideArgs& a, const DecideNb* nb, int64_t p, in
 // overlap bytes (ops/pallas_follow.py; ops/decision.py::follow_lanes with
 // packed=True).  Steps after the lane finishes write zero records.
 //
-// The kernel copies a tile of each lane's window, ``w = ctl | tok << 10``
-// over TW window positions, into shared memory and walks the chain there;
+// The kernel copies a tile of each lane's window, ``w = follow_pack(ctl,
+// tok)`` over TW window positions, into shared memory and walks the chain
+// there;
 // a lane whose chain leaves its tile stops, and walks on once the tile is
 // refilled from where it stopped (window positions only rise).  Tile
 // layout: window position tb + k, fd row r at tile[k * rows + r], the rows
@@ -712,13 +720,20 @@ TM_HD FollowLane follow_begin(const FollowArgs& a, int32_t lane) {
   return s;
 }
 
+// A decision as one tile word: ctl bits 0-7 (delta, fd', has_tok), miss
+// at bit 8, the token word from bit 9.  has_del (ctl bit 8) is left out:
+// decide sets it exactly with fd', and follow_walk writes fd' for both.
+TM_HD uint32_t follow_pack(uint32_t ctl, uint32_t tok) {
+  return (ctl & 0xFFu) | (((ctl >> 9) & 1u) << 8) | (tok << 9);
+}
+
 // The packed word of fd row ``row`` at window position ``k`` (clamped to
 // the window) of a lane starting at ``start``: zero past N.
 TM_HD uint32_t follow_word(const FollowArgs& a, int64_t start, int32_t row, int64_t k) {
   const int64_t q = start + (k < a.W - 1 ? k : a.W - 1);
   if (q >= a.N) return 0u;
   const int64_t at = (int64_t)row * a.N + q;
-  return (uint32_t)TM_LDG(a.ctl + at) | ((uint32_t)TM_LDG(a.tok + at) << 10);
+  return follow_pack((uint32_t)TM_LDG(a.ctl + at), (uint32_t)TM_LDG(a.tok + at));
 }
 
 // Steps of one lane on a tile holding window positions [tb, tb + TW).
@@ -737,13 +752,14 @@ TM_HD bool follow_walk(const FollowArgs& a, int32_t lane, FollowLane& s,
   uint32_t* recs = a.recs + (int64_t)t * a.L + lane;
   uint32_t* toks = a.toks + (int64_t)t * a.L + lane;
   const int32_t end = tb + TW;
+  const uint32_t tok_mask = (1u << (a.w3_shift + 2)) - 1u;
   for (; !done && t < a.t_rec; ++t, recs += a.L, toks += a.L) {
     if (pos >= end) break;
     const uint32_t w = at[pos * rows + fd];
     pos += (int32_t)(w & 63u);
     fd = (int32_t)((w >> 6) & 1u);
-    *recs = ((start + (uint32_t)pos) << 4) | ((w >> 6) & 15u);
-    *toks = w >> 10;
+    *recs = ((start + (uint32_t)pos) << 4) | ((w >> 6) & 3u) | ((uint32_t)fd << 2) | (((w >> 8) & 1u) << 3);
+    *toks = (w >> 9) & tok_mask;
     done = pos >= s.stop;
   }
   s.t = t;
@@ -767,7 +783,7 @@ TM_HD void follow_end(const FollowArgs& a, int32_t lane, const FollowLane& s,
 
 // -------------------------------------------------------------- compact
 // The kept records [s_l, e_l] of lane l to the dense slots q_l + j, with
-// the delete marker (record bit 2) folded into bit 22 of the token word,
+// the delete marker (record bit 2) folded into bit S + 2 of the token word,
 // and zero in every slot no kept record maps to
 // (ops/pallas_stitch.py::make_compact_kernel writes into a zeroed buffer).
 //
@@ -803,7 +819,7 @@ TM_HD bool compact_keeps(const CompactLane& c, int32_t j) { return c.s <= j && j
 // The output word of record j of a lane.
 TM_HD uint32_t compact_word(const CompactArgs& a, int32_t lane, int32_t j) {
   const int64_t at = (int64_t)j * a.L + lane;
-  return TM_LDG(a.toks + at) | (((TM_LDG(a.recs + at) >> 2) & 1u) << 22);
+  return TM_LDG(a.toks + at) | (((TM_LDG(a.recs + at) >> 2) & 1u) << (a.w3_shift + 2));
 }
 
 // Word w of kept record j to its slot, dropped outside [0, out_len).

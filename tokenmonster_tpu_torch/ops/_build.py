@@ -50,19 +50,20 @@ class DecideArgs(ctypes.Structure):
                 ("bb", _P), ("ctl", _P), ("tok", _P), ("N", _I64),
                 ("n_entries", _I64), ("n", _I32), ("has_delete", _I32),
                 ("has_unk", _I32), ("unk_token", _I32), ("lil_off", _I32),
-                ("pad_", _I32)]
+                ("w3_shift", _I32)]
 
 
 class FollowArgs(ctypes.Structure):
     _fields_ = [("ctl", _P), ("tok", _P), ("recs", _P), ("toks", _P),
                 ("done_all", _P), ("N", _I64), ("rows", _I32), ("n", _I32),
                 ("chunk", _I32), ("overlap", _I32), ("W", _I32), ("L", _I32),
-                ("t_rec", _I32), ("pad_", _I32)]
+                ("t_rec", _I32), ("w3_shift", _I32)]
 
 
 class CompactArgs(ctypes.Structure):
     _fields_ = [("recs", _P), ("toks", _P), ("s", _P), ("e", _P), ("q", _P),
-                ("out", _P), ("out_len", _I64), ("T", _I32), ("L", _I32)]
+                ("out", _P), ("out_len", _I64), ("T", _I32), ("L", _I32),
+                ("w3_shift", _I32), ("pad_", _I32)]
 
 
 KERNELS = ("match", "decide", "follow", "compact")

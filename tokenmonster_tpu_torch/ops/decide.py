@@ -10,8 +10,12 @@ first-hit tie order are those of go/tokenmonster.go:1057, :1075-1108,
 
 Outputs (the ``ops/decision.py`` contract):
   ctl = delta(6b) | fd'<<6 | has_tok<<7 | has_del<<8 | miss<<9
-  tok = dict idx (20b) | branch w3 (2b) << 20; w3 == 3 marks a literal id
+  tok = dict idx (S bits) | branch w3 (2b) << S; w3 == 3 marks a literal id
 shape (N,) for a vocabulary without a delete token, else (2, N), row fd.
+S is the tables' ``w3_shift`` (``ops/tables.py::w3_shift``): 20 where the
+JAX package's Pallas engine serves the vocabulary, so the words are its
+words bit for bit, and 21 for vocabularies of 2^20 entries or more, which
+the JAX package tokenizes on its XLA decision engine.
 
 One difference from the JAX kernel, which clamps every advance to at least
 one byte: at fd = 1 a branch to an alternative of length 1 (the virtual
@@ -25,11 +29,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .tables import DeviceTables
+from .tables import DeviceTables, del_bit
 
 NEG = -1000000
-W3_SHIFT = 20
-DEL_BIT = 1 << 22   # "delete token follows" marker in a compacted word
 
 
 def decide_plain(m: torch.Tensor, mb: torch.Tensor | None,
@@ -39,6 +41,7 @@ def decide_plain(m: torch.Tensor, mb: torch.Tensor | None,
     Reads past N see zeros, as the JAX kernel's zero margin rows do."""
     N = m.numel()
     dev = m.device
+    S = tabs.w3_shift
     pad = torch.zeros(128, dtype=torch.int64, device=dev)
     mp = torch.cat([m.long() & 0xFFFFFFFF, pad])
     tp = torch.cat([text.long(), pad])
@@ -133,8 +136,8 @@ def decide_plain(m: torch.Tensor, mb: torch.Tensor | None,
         ctl = (torch.maximum(new_pos_rel, lo).clamp(max=63)
                | (is_b * ((1 << 6) | (1 << 8)))
                | (has_tok * (1 << 7)) | (miss * (1 << 9)))
-        tok = torch.where(miss, (3 << W3_SHIFT) | tabs.unk_token,
-                          cur_idx | (w3 << W3_SHIFT))
+        tok = torch.where(miss, (3 << S) | tabs.unk_token,
+                          cur_idx | (w3 << S))
         return ctl.to(torch.int32), tok.to(torch.int32)
 
     if not tabs.has_delete:
@@ -174,7 +177,7 @@ def decide(m: torch.Tensor, mb: torch.Tensor | None, text: torch.Tensor,
         N=N, n_entries=tabs.entries.shape[1], n=n,
         has_delete=int(tabs.has_delete),
         has_unk=int(tabs.has_unk), unk_token=tabs.unk_token,
-        lil_off=tabs.lil_off)
+        lil_off=tabs.lil_off, w3_shift=tabs.w3_shift)
     _build.launch("decide", args, dev)
     if rows == 1:
         return ctl[0], tok[0]
@@ -183,18 +186,20 @@ def decide(m: torch.Tensor, mb: torch.Tensor | None, text: torch.Tensor,
 
 def resolve_device(words: torch.Tensor, tabs: DeviceTables) -> torch.Tensor:
     """Compacted token words to emitted ids, on the words' device: idx |
-    w3<<W3_SHIFT through ``ids3`` (w3 == 3 marks a literal id), and the
-    delete token spliced in after each word with DEL_BIT.  Port of
+    w3<<S (S the tables' ``w3_shift``) through ``ids3`` (w3 == 3 marks a
+    literal id), and the delete token spliced in after each word with
+    ``del_bit(S)``.  Port of
     ``tokenmonster_tpu/ops/pallas_decide.py::resolve_tokens``; int64 out."""
+    S = tabs.w3_shift
     w = words.long()
-    idx = w & ((1 << W3_SHIFT) - 1)
-    w3 = (w >> W3_SHIFT) & 3
+    idx = w & ((1 << S) - 1)
+    w3 = (w >> S) & 3
     flat = tabs.ids3.long().reshape(-1) & 0xFFFFFFFF
     res = flat[(idx * 3 + w3.clamp(max=2)).clamp(max=flat.numel() - 1)]
     res = torch.where(w3 == 3, idx, res)
     if not tabs.has_delete:
         return res
-    dele = (w & DEL_BIT) != 0
+    dele = (w & del_bit(S)) != 0
     pair = torch.stack([res, torch.full_like(res, tabs.delete_token)], 1)
     keep = torch.stack([torch.ones_like(dele), dele], 1)
     return pair[keep]

@@ -157,13 +157,13 @@ class GpuTokenizer:
         bufs = torch.from_numpy(host).to(self.device)
         return n, L, [(bufs[i], n_i, lr) for i, (n_i, lr) in enumerate(slices)]
 
-    @staticmethod
-    def _compact(recs, toks, buf, start0, last_lane: int, final: bool):
+    def _compact(self, recs, toks, buf, start0, last_lane: int,
+                 final: bool):
         """The tokenizer's epilogue: (start_next, (out, count, missing,
         sync_ok, junction_ok))."""
         out, count, missing, start_next, sync_ok, junction_ok = (
             device_stitch_compact(recs, toks, start0, last_lane, final,
-                                  recs.numel()))
+                                  recs.numel(), self.tables.w3_shift))
         return start_next, (out, count, missing, sync_ok, junction_ok)
 
     def _records(self, buf, n: int, tabs, chunk: int, overlap: int,
@@ -180,7 +180,8 @@ class GpuTokenizer:
             m = remap_matches(m, tabs.rank)
             mb = None if mb is None else remap_matches(mb, tabs.rank)
         ctl, tok = decide(m, mb, buf, n, tabs)
-        return follow(ctl, tok, n, chunk, n_lanes, overlap, t_rec)
+        return follow(ctl, tok, n, chunk, n_lanes, overlap, t_rec,
+                      tabs.w3_shift)
 
     def _dispatch(self, buf, n: int, start0, last_lane: int, final: bool,
                   n_lanes: int, full: bool, tabs, epilogue, patch: dict):
@@ -249,8 +250,8 @@ class GpuTokenizer:
         if self.tables.match_only:
             raise NotImplementedError(
                 "match-only tables (a trainer superset's) have no decide "
-                "tables: vocabularies of 2^20 entries or more tokenize on "
-                "the host (ROADMAP.md §1 item 14)")
+                "tables: a tokenizer uploads the vocabulary's whole tables "
+                "(match_only=False)")
         outs = self._run_staged(staged, full, self.tables, self._compact, {})
         k = len(outs)
         meta = torch.stack([torch.stack([o[j].long() for o in outs])

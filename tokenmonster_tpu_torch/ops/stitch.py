@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .tables import W3_SHIFT, del_bit
 
 _REC_FD, _REC_TOK, _REC_DEL, _REC_MISS = 1, 2, 4, 8
 _NO_STATE = 1 << 62   # above every (position, fd) state
@@ -108,12 +109,16 @@ def stitched_keep(recs: torch.Tensor, start0, last_lane: int, final: bool):
 
 def restart_point(recs: torch.Tensor, start0, last_lane: int, final: bool):
     """Where the text's chain can be followed on at the first owned
-    junction of a (T, L) record grid whose splice does not hold: (g, at),
-    lane g the last lane that follows the chain and ``at`` the position of
-    its last record with fd 0, other than its last record, at or after its
-    splice with lane g-1.  A lane started at ``at`` with fd 0 follows the
-    chain from there (the state is the whole automaton state).  None when
-    every splice holds.  Reads back to the host."""
+    junction j (lanes j and j+1) of a (T, L) record grid whose splice does
+    not hold: (g, at, j), lane g the last lane up to j that holds a record
+    with fd 0, other than its last record, at or after its splice with
+    lane g-1, and ``at`` the position of its last such record.  Every lane
+    up to j follows the chain from its splice, so a lane started at ``at``
+    with fd 0 follows the chain from there (the state is the whole
+    automaton state), and its first record is lane g's next one.  A lane
+    shorter than the overlap it scans past its chunk may join the chain
+    only at its last record; then an earlier lane holds the restart.  None
+    when every splice holds.  Reads back to the host."""
     T, L = recs.shape
     if L < 2:
         return None
@@ -123,46 +128,52 @@ def restart_point(recs: torch.Tensor, start0, last_lane: int, final: bool):
     bad = torch.nonzero(~holds)
     if bad.numel() == 0:
         return None
-    g = int(bad[0, 0])
-    joined = int(start0[0]) - 1 if g == 0 else int(kstar[g - 1])
-    col = recs[:, g].long().cpu().numpy()
+    bad_g = int(bad[0, 0])
+    cols = recs[:, :bad_g + 1].long().cpu().numpy()
+    joined = np.concatenate([[int(start0[0]) - 1],
+                             kstar[:bad_g].cpu().numpy()])
     t = np.arange(T)
-    ok = (((col & 0xF) != 0) & ((col & _REC_FD) == 0) & (t >= joined)
-          & (t < int(((col & 0xF) != 0).sum()) - 1))
-    if not ok.any():
-        raise RuntimeError(f"lane {g} holds no record with fd 0 past its "
-                           "splice to restart the chain from: a fault of "
-                           "the follow kernel")
-    return g, int(col[t[ok][-1]] >> 4)
+    for g in range(bad_g, -1, -1):
+        col = cols[:, g]
+        ok = (((col & 0xF) != 0) & ((col & _REC_FD) == 0)
+              & (t >= joined[g]) & (t < int(((col & 0xF) != 0).sum()) - 1))
+        if ok.any():
+            return g, int(col[t[ok][-1]] >> 4), bad_g
+    raise RuntimeError(f"lanes 0-{bad_g} hold no record with fd 0 past their "
+                       "splices to restart the chain from: a fault of the "
+                       "follow kernel")
 
 
 def compact_plain(recs: torch.Tensor, toks: torch.Tensor, s: torch.Tensor,
-                  e: torch.Tensor, q: torch.Tensor, out_len: int):
+                  e: torch.Tensor, q: torch.Tensor, out_len: int,
+                  w3_shift: int = W3_SHIFT):
     """PyTorch version of the compact kernel: out[q_l + j] = toks[j, l] |
-    DEL_BIT if record (j, l) emits a delete, for j in [s_l, min(e_l, T-1)];
-    zero elsewhere.  int32 [out_len]."""
+    ``del_bit(w3_shift)`` if record (j, l) emits a delete, for j in [s_l,
+    min(e_l, T-1)]; zero elsewhere.  int32 [out_len]."""
     T, L = recs.shape
     dev = recs.device
     j = torch.arange(T, device=dev)[:, None]
     slot = q.long()[None, :] + j
     keep = ((j >= s.long()[None, :]) & (j <= e.long()[None, :])
             & (slot >= 0) & (slot < out_len))
-    words = toks.long() | (((recs.long() >> 2) & 1) << 22)
+    words = toks.long() | (((recs.long() >> 2) & 1) * del_bit(w3_shift))
     out = torch.zeros(out_len, dtype=torch.int64, device=dev)
     out[slot.T[keep.T]] = words.T[keep.T]
     return out.to(torch.int32)
 
 
 def compact(recs: torch.Tensor, toks: torch.Tensor, s: torch.Tensor,
-            e: torch.Tensor, q: torch.Tensor, out_len: int):
+            e: torch.Tensor, q: torch.Tensor, out_len: int,
+            w3_shift: int = W3_SHIFT):
     """Dense token words of the kept records: the CUDA kernel for CUDA
     tensors, the plain version for CPU ones.  ``recs``/``toks``: int32
     (T, L); ``s``/``e``/``q``: per-lane first and last kept record and the
-    output slot of record 0.  The kernel writes every word of the output,
-    the zeros too."""
+    output slot of record 0; ``w3_shift``: the tables' S, which puts the
+    delete marker above the token words' w3 bits.  The kernel writes
+    every word of the output, the zeros too."""
     T, L = recs.shape
     if recs.device.type == "cpu":
-        return compact_plain(recs, toks, s, e, q, out_len)
+        return compact_plain(recs, toks, s, e, q, out_len, w3_shift)
     dev = recs.device
     _build.check(recs, "recs", torch.int32, dev)
     _build.check(toks, "toks", torch.int32, dev, (T, L))
@@ -172,13 +183,14 @@ def compact(recs: torch.Tensor, toks: torch.Tensor, s: torch.Tensor,
     args = _build.CompactArgs(
         recs=recs.data_ptr(), toks=toks.data_ptr(), s=s.data_ptr(),
         e=e.data_ptr(), q=q.data_ptr(), out=out.data_ptr(), out_len=out_len,
-        T=T, L=L)
+        T=T, L=L, w3_shift=w3_shift)
     _build.launch("compact", args, dev)
     return out
 
 
 def device_stitch_compact(recs: torch.Tensor, toks: torch.Tensor, start0,
-                          last_lane: int, final: bool, out_cap: int):
+                          last_lane: int, final: bool, out_cap: int,
+                          w3_shift: int = W3_SHIFT):
     """Stitch and compact one dispatch, on its device with no host sync.
     Returns (out int32 [out_cap], count, missing, start_next, sync_ok,
     junction_ok) as 0-dim tensors.  junction_ok is False when an owned
@@ -197,7 +209,7 @@ def device_stitch_compact(recs: torch.Tensor, toks: torch.Tensor, start0,
     q = offs - start_rec
     out = compact(recs, toks, start_rec.to(torch.int32),
                   end_rec.clamp(max=T - 1).to(torch.int32),
-                  q.to(torch.int32), out_cap)
+                  q.to(torch.int32), out_cap, w3_shift)
     return out, ends[-1], missing, start_next, sync_ok & fast_ok, sync_ok
 
 

@@ -34,7 +34,20 @@ from .hashmatch import (IDX_BITS, SEED, ClassTable, HashMatchTables,
 DESC_W = 32
 MAX_SCALE = DESC_W - D_SCALE
 
-MAX_ENTRIES = 1 << 20   # token words pack 20-bit dictionary indices
+# Token words are idx | w3 << S (ops/decide.py).  Below MAX_ENTRIES
+# dictionary entries S is W3_SHIFT, the JAX package's Pallas words; from
+# there up to the hash placement's limit (``placement_limit``) S is
+# W3_SHIFT_WIDE, which holds every index the placement's fields hold.
+MAX_ENTRIES = 1 << 20
+W3_SHIFT = 20
+W3_SHIFT_WIDE = 21
+
+
+def del_bit(w3_shift: int) -> int:
+    """The "delete token follows" marker of a compacted token word, above
+    the word's two w3 bits."""
+    return 1 << (w3_shift + 2)
+
 # The match kernel's key filter: two bits per (key length, key hash), set
 # for every key of the placement, so a probe with either bit clear cannot
 # hit.  Bit 1: the top bits of x = (h + l*LEN_MULT)*MULT; bit 2: the top
@@ -330,6 +343,35 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def w3_shift(vocab) -> int:
+    """S of ``vocab``'s token words: W3_SHIFT where the JAX package's
+    Pallas engine takes the vocabulary (fewer than MAX_ENTRIES entries,
+    its unk and delete ids below MAX_ENTRIES:
+    ``tokenmonster_tpu/ops/scan.py:512-518``), else W3_SHIFT_WIDE."""
+    literals = [int(t) & 0xFFFFFF for t in (vocab.unk_token,
+                                            vocab.delete_token)
+                if t != DOES_NOT_EXIST]
+    narrow = (len(vocab.tokens) < MAX_ENTRIES
+              and all(t < MAX_ENTRIES for t in literals))
+    return W3_SHIFT if narrow else W3_SHIFT_WIDE
+
+
+def placement_limit() -> int:
+    """The most dictionary entries a hash placement holds: its fields pack
+    idx+1 in IDX_BITS bits."""
+    return (1 << IDX_BITS) - 2
+
+
+def check_placement(n: int) -> None:
+    """Raise for a vocabulary of ``n`` entries that no placement holds."""
+    if n > placement_limit():
+        raise NotImplementedError(
+            f"{n} dictionary entries: the hash placement packs idx+1 in "
+            f"{IDX_BITS}-bit index fields, so it holds at most "
+            f"{placement_limit()} entries; larger vocabularies tokenize on "
+            "the host (ROADMAP.md §1 item 22)")
+
+
 def meta_width(n: int) -> int:
     """Dictionary slots of ``build_meta_planes`` for ``n`` tokens: rows of
     128, a multiple of 8 rows, at least 8."""
@@ -339,17 +381,19 @@ def meta_width(n: int) -> int:
 def _vocab_config(tabs, vocab, literals: bool = True) -> None:
     """The per-vocabulary kernel scalars: literal ids and row layout.
     ``literals``: check that the unk and delete ids fit the decide
-    kernel's literal field (not for match-only superset tables, whose
-    candidates bring their own)."""
+    kernel's literal field of ``tabs.w3_shift`` bits (not for match-only
+    superset tables, whose candidates bring their own)."""
     tabs.lil_off = 2 if vocab.charset == 2 else 1
     tabs.has_delete = vocab.delete_token != DOES_NOT_EXIST
     tabs.has_unk = vocab.unk_token != DOES_NOT_EXIST
     tabs.unk_token = int(vocab.unk_token) & 0xFFFFFF
     tabs.delete_token = int(vocab.delete_token) & 0xFFFFFF
     for name, tok in (("unk", tabs.unk_token), ("delete", tabs.delete_token)):
-        if literals and getattr(tabs, f"has_{name}") and tok >= MAX_ENTRIES:
+        if (literals and getattr(tabs, f"has_{name}")
+                and tok >= 1 << tabs.w3_shift):
             raise NotImplementedError(
-                f"{name} id {tok} does not fit the 20-bit literal field")
+                f"{name} id {tok} does not fit the {tabs.w3_shift}-bit "
+                "literal field (ROADMAP.md §1 item 22)")
     if tabs.has_space != tabs.has_delete:
         raise ValueError("hash tables carry the space-stripped entries "
                          "iff the vocabulary has a delete token")
@@ -366,13 +410,14 @@ class DeviceTables(nn.Module):
     indexes), the kernel's table built from them (``decide_entries``) and
     the begin-byte table.  Id resolution:
     ``ids3``.  All integer buffers hold u32 bit patterns as int32.
+    ``w3_shift``: S of the token words (``w3_shift``), which decide,
+    follow, compact and id resolution take from here.
 
     ``match_only`` (a trainer superset) carries the match tables only:
     ``meta``, ``entries``, ``bb`` and ``ids3`` are None, and its
-    candidates bring their own at candidate size (``upload_tables``
-    refuses any other vocabulary of MAX_ENTRIES entries or more).  The
-    indices must fit the placement's index fields (IDX_BITS bits of
-    idx+1), or the constructor raises."""
+    candidates bring their own at candidate size.  The indices must fit
+    the placement's index fields (IDX_BITS bits of idx+1), or the
+    constructor raises."""
 
     def __init__(self, vocab, tables, match_only: bool = False):
         super().__init__()
@@ -383,11 +428,12 @@ class DeviceTables(nn.Module):
         self.rank = None              # the superset's own indices
         n_cls = len(tables.classes)
         self.idx1_bits = tables.classes[0].idx1_bits if n_cls else 21
-        if n + 1 >= 1 << IDX_BITS or self.idx1_bits > IDX_BITS:
+        check_placement(n)
+        if self.idx1_bits > IDX_BITS:
             raise NotImplementedError(
-                f"{n} dictionary entries: the hash placement packs idx+1 in "
-                f"{IDX_BITS}-bit index fields, so it holds at most "
-                f"{(1 << IDX_BITS) - 2} entries")
+                f"the placement packs idx+1 in {self.idx1_bits} bits, wider "
+                f"than the kernels' {IDX_BITS}-bit index fields")
+        self.w3_shift = w3_shift(vocab)
         flat = flat_tables(tables)
         desc, len_cls, fields, disp, ovf = class_descriptors(tables, flat)
         self.register_buffer("fields", _t(fields))
@@ -441,7 +487,9 @@ class CandidateTables:
     the superset and never written: ``disp``, ``desc``, ``len_cls``,
     ``ovf_keys``, the key filter and the host geometry.  Any other shape
     raises ValueError; a candidate of MAX_ENTRIES entries or more raises
-    NotImplementedError, since token words pack 20-bit indices."""
+    NotImplementedError: a candidate's token words are W3_SHIFT words, as
+    every trainer candidate (a vocabulary of a trainer's size) fits
+    them."""
 
     def __init__(self, base: DeviceTables, vocab, flat: tuple,
                  scalars: np.ndarray, planes: np.ndarray, bb: np.ndarray,
@@ -449,9 +497,9 @@ class CandidateTables:
         n = len(vocab.tokens)
         if n >= MAX_ENTRIES:
             raise NotImplementedError(
-                f"candidate of {n} entries: token words pack 20-bit "
-                "dictionary indices, so candidates of 2^20 entries or more "
-                "are not supported")
+                f"candidate of {n} entries: a candidate's token words pack "
+                f"{W3_SHIFT}-bit dictionary indices, so candidates of 2^20 "
+                "entries or more are not supported")
         for name in ("disp", "desc", "len_cls", "ovf_keys", "filt",
                      "filt_log2", "classes", "max_len", "idx1_bits",
                      "has_space"):
@@ -482,6 +530,7 @@ class CandidateTables:
         check_alternative_lengths(planes)
         self.entries = decide_entries(
             self.meta, 2 if vocab.delete_token != DOES_NOT_EXIST else 1)
+        self.w3_shift = W3_SHIFT
         _vocab_config(self, vocab)
 
 
@@ -499,15 +548,9 @@ def upload_tables(vocab, hashmatch_tables=None, device="cpu",
     tables) to ``device``.  The hash-match tables are a numpy placement
     (``build_hashmatch``): pass one, this package's or the JAX package's
     (``from_reference_tables``), to share one build, or leave None to
-    build it here.  A vocabulary of MAX_ENTRIES entries or more raises
-    unless ``match_only``, before anything is built: token words pack
-    20-bit dictionary indices."""
-    if len(vocab.tokens) >= MAX_ENTRIES and not match_only:
-        raise NotImplementedError(
-            f"vocabulary of {len(vocab.tokens)} entries: token words pack "
-            "20-bit dictionary indices, so vocabularies of 2^20 entries or "
-            "more tokenize on the host (ROADMAP.md §1 item 14); the trainer "
-            "scores their candidates in REMAP mode")
+    build it here.  A vocabulary of more entries than a placement holds
+    (``placement_limit``) raises before anything is built."""
+    check_placement(len(vocab.tokens))
     if hashmatch_tables is None:
         hashmatch_tables = build_hashmatch(vocab.tokens,
                                            space_prefix=space_prefix(vocab))

@@ -44,7 +44,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..ops.decide import W3_SHIFT
 from ..ops.scan import OVERLAP_SCAN, GpuTokenizer
 from ..ops.stitch import device_stitch_score, restart_point
 from ..ops.tables import CandidateTables
@@ -58,11 +57,12 @@ def score_epilogue(tabs: CandidateTables, n_ids: int, chunk: int):
     emit nothing are masked in ``device_stitch_score``), then the scores
     of the dispatch."""
     ids3 = tabs.ids3.long().reshape(-1) & 0xFFFFFFFF
+    S = tabs.w3_shift
 
     def epilogue(recs, toks, buf, start0, last_lane: int, final: bool):
         t = toks.long()
-        idx = t & ((1 << W3_SHIFT) - 1)
-        w3 = (t >> W3_SHIFT) & 3
+        idx = t & ((1 << S) - 1)
+        w3 = (t >> S) & 3
         emit = ids3[(idx * 3 + w3.clamp(max=2)).clamp(0, ids3.numel() - 1)]
         scores, n_tok, miss_mask, start_next, sync_ok = device_stitch_score(
             recs, emit, buf, start0, last_lane, final, n_ids, chunk,
@@ -94,9 +94,10 @@ def _repair_columns(tk: GpuTokenizer, tabs, data: bytes, off: int, g: int,
     g+1 .. g+k of the dispatch at ``off``, positions in that dispatch:
     lane g+1 gets the chain up to its own scan end, each later lane the
     records past its start up to its scan end, as a lane's own scan would
-    reach.  So each column's first record is a state of the lane before it,
-    and the splices hold.  {lane: (recs, toks)} int32 columns of ``t_rec``
-    rows, or None where a column holds more records than ``t_rec``."""
+    reach: through the first record at or past that end.  So each column's
+    first record is a state of the lane before it, and the splices hold.
+    {lane: (recs, toks)} int32 columns of ``t_rec`` rows, or None where a
+    column holds more records than ``t_rec``."""
     chunk = tk.chunk
     end = (g + k + 1) * chunk + OVERLAP_SCAN    # lane g+k's scan end
     recs, toks = tk.chain(tabs, data, off + at, end - at)
@@ -104,7 +105,8 @@ def _repair_columns(tk: GpuTokenizer, tabs, data: bytes, off: int, g: int,
     recs = (pos << 4) | (recs & 0xF)
     cols = {}
     for lane in range(g + 1, g + k + 1):
-        sel = pos <= (lane + 1) * chunk + OVERLAP_SCAN
+        last = np.searchsorted(pos, (lane + 1) * chunk + OVERLAP_SCAN)
+        sel = np.arange(len(pos)) <= last
         if lane > g + 1:
             sel &= pos > lane * chunk
         if sel.sum() > t_rec:
@@ -145,15 +147,20 @@ def _repair(tk: GpuTokenizer, staged, data: bytes, tabs, epilogue,
             return s.cpu().numpy(), int(nt), mm.cpu().numpy(), repairs
         d = int(np.nonzero(~flags[:, 1])[0][0])
         last_lane, final = bufs[d][2], d == len(bufs) - 1
-        g, at = restart_point(*grids[d], last_lane, final)
-        if (d, g) <= last:
-            raise RuntimeError(f"a repaired junction (dispatch {d}, lane {g})"
+        g, at, j = restart_point(*grids[d], last_lane, final)
+        if (d, j) <= last:
+            raise RuntimeError(f"a repaired junction (dispatch {d}, lane {j})"
                                " did not hold: a fault of the repair")
-        last = (d, g)
-        k = min((last_lane if final else L - 1) - g, 1 << repairs)
+        last = (d, j)
+        # the columns reach past junction j, so it holds after this repair
+        k = min((last_lane if final else L - 1) - g,
+                max(1 << repairs, j + 1 - g))
         cols = _repair_columns(tk, tabs, data, plan[d][0], g, at, k,
                                tk._t_rec(full))
         if cols is None:           # dense text: the full window holds it
+            if full:
+                raise RuntimeError("a repair column holds more records than "
+                                   "the full record window")
             full, patches, repairs, last = True, {}, 0, (-1, -1)
             continue
         for lane, (rec_col, tok_col) in cols.items():

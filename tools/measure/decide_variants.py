@@ -177,7 +177,7 @@ def main(names: list[str]) -> int:
         ctl=ctl.data_ptr(), tok=tok.data_ptr(), N=N,
         n_entries=tabs.entries.shape[1], n=n, has_delete=1,
         has_unk=int(tabs.has_unk), unk_token=tabs.unk_token,
-        lil_off=tabs.lil_off)
+        lil_off=tabs.lil_off, w3_shift=tabs.w3_shift)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launcher(name):
