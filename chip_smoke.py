@@ -33,7 +33,10 @@ for one round, on a pool whose superset holds more than 2^20 entries;
 then that superset vocabulary tokenizes the whole text with the wide
 token word (S = 21) through ``GpuTokenizer`` and through ``load(...)`` of
 its saved ``.vocab`` ("device" and "auto" routes), against native, each
-kernel against its plain version at S = 21, with times.  The pipeline
+kernel against its plain version at S = 21, with times.  Then the same
+for a pool of the same text, counted once with it, whose superset holds
+2^21 - 1 entries or more: 22-bit placement index fields, token words at S
+= 22 (follow's u64 tile word timed against the u32 word).  The pipeline
 phase runs
 getalltokens, trainvocab (cuda against native) and exportvocab from the
 shell, then serves the exported vocabulary through ``load(...,
@@ -93,6 +96,13 @@ BIG_MIN_OCCUR = 7             # lowered from the source's 60 so that this
 BIG_ENTRIES = 1 << 20         # the superset must hold more entries
 BIG_CANDIDATES = 3
 BIG_ROUNDS = 1
+WIDER_MIN_OCCUR = 4           # the largest min occur at which the same
+                              # text's superset holds WIDER_ENTRIES: 5
+                              # gave a pool of 1,133,169 and 1,738,440
+                              # entries, 4 gave 1,605,260 and 2,475,011
+WIDER_ENTRIES = (1 << 21) - 1  # at least: 22-bit placement fields
+WIDER_CANDIDATES = 1
+WIDER_ROUNDS = 1
 CLI_ROUNDS = 2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The least time the card could take for a kernel's work: its bytes (each
@@ -1014,17 +1024,21 @@ def _popcount_share(words: torch.Tensor) -> float:
 
 
 def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
-                         work: str) -> dict:
-    """The tokenizer at a vocabulary of 2^20 entries or more: the
-    reference-scale superset vocabulary (``sup``), whose token words take
-    the wide shift (S = 21).  Through ``GpuTokenizer`` on the arm's
-    placement (``GpuCandidateScorer.prepare`` builds it as
-    ``upload_tables`` would, space-stripped entries included), then saved
-    and loaded with ``load(path, device="cuda")``, its route pinned to
-    "device" and then "auto": the ids of the whole text against native
-    (arrays and FNV-1a 64, missing counts) on every call, no host
+                         work: str, shift: int, key: str) -> dict:
+    """The tokenizer at a vocabulary of 2^20 entries or more: a trainer
+    superset's vocabulary (``sup``), whose token words take the wide shift
+    ``shift`` (21 at the reference-scale superset, 22 past 2^21 entries).
+    Through ``GpuTokenizer`` on the arm's placement
+    (``GpuCandidateScorer.prepare`` builds it as ``upload_tables`` would,
+    space-stripped entries included), then saved and loaded with
+    ``load(path, device="cuda")``, its route pinned to "device" and then
+    "auto", which must pick the device: the ids of the whole text against
+    native (arrays and FNV-1a 64, missing counts) on every call, no host
     fallback; each kernel against its plain version on one dispatch, then
-    times.  Returns per kernel its numbers at this vocabulary."""
+    times.  At S = 21 decide is timed against S = 20 on the same dispatch,
+    in turns; above, follow's u64 tile word against its u32 word at S = 21.
+    Returns per kernel its numbers at this vocabulary, keys prefixed
+    ``key``."""
     from unittest import mock
 
     import tokenmonster_tpu_torch as tt
@@ -1043,15 +1057,18 @@ def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
     torch.cuda.synchronize()
     up_s = time.perf_counter() - t0
     tabs = wtk.tables
-    require(tabs.w3_shift == 21, f"token words at shift {tabs.w3_shift}")
+    require(tabs.w3_shift == shift, f"token words at shift {tabs.w3_shift}")
     tab_bytes = nbytes(*tabs.buffers())
     nv = NativeVocab(v)
+    t0 = time.perf_counter()
     want, wmiss = nv.tokenize(text)
+    native_s = time.perf_counter() - t0
     h_want = fnv1a64(want)
-    print(f"wide tokenizer: the superset vocabulary, {n_ent} entries, "
+    print(f"{key} tokenizer: the superset vocabulary, {n_ent} entries, "
           f"delete token {tabs.has_delete}, token words at S = "
-          f"{tabs.w3_shift}; tables uploaded in {up_s:.3f} s on the arm's "
-          f"placement, {tab_bytes} B on the card [{card}]")
+          f"{tabs.w3_shift}, {tabs.idx1_bits}-bit index fields; tables "
+          f"uploaded in {up_s:.3f} s on the arm's placement, {tab_bytes} B "
+          f"on the card; native {native_s:.3f} s [{card}]")
 
     missing_seen = []
     tokenize = GpuTokenizer.tokenize
@@ -1072,14 +1089,16 @@ def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
         print(f"{what}: {len(ids32)} ids, fnv1a64 {h:016x} (native "
               f"{h_want:016x}), missing {missing_seen[-1]} (native {wmiss})")
 
-    path = os.path.join(work, "superset.vocab")
+    path = os.path.join(work, f"{key}.vocab")
     t0 = time.perf_counter()
     v.save(path)
     vocab = tt.load(path, device="cuda", route="device")
     load_s = time.perf_counter() - t0
     _build.reset_launches()
     with mock.patch.object(GpuTokenizer, "tokenize", recording):
+        t0 = time.perf_counter()
         ids, _missing = wtk.tokenize(text)
+        tok_s = time.perf_counter() - t0
         held(ids, f"GpuTokenizer, {len(text)} normalized bytes")
         t0 = time.perf_counter()
         ids = vocab.tokenize(raw)
@@ -1088,29 +1107,33 @@ def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
         held(ids, f"load(route=\"device\"), {len(raw)} raw bytes")
         vocab.route = "auto"
         ids = vocab.tokenize(raw)
-        if vocab.last_route == "native":
-            missing_seen.append(wmiss)    # native: its own count
+        require(vocab.last_route == "device",
+                f"route \"auto\" picked {vocab.last_route}")
         held(ids, f"load(route=\"auto\"), picked {vocab.last_route}")
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     api_tk = vocab._tpu
     require(wtk.host_fallbacks == 0 == api_tk.host_fallbacks,
             f"a host fallback: {wtk.fallbacks}, {api_tk.fallbacks}")
-    require(api_tk.tables.w3_shift == 21, "load() took another shift")
+    require(api_tk.tables.w3_shift == shift, "load() took another shift")
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel was not launched: {launches}")
-    print(f"wide tokenizer: saved and loaded in {load_s:.3f} s, first "
-          f"device call {first_s:.3f} s (its placement built); route "
-          f"counts {vocab.route_counts}; launches {launches} [{card}]")
+    print(f"{key} tokenizer: GpuTokenizer call {tok_s:.3f} s; saved and "
+          f"loaded in {load_s:.3f} s, first device call {first_s:.3f} s "
+          f"(its placement built); route counts {vocab.route_counts}; "
+          f"junctions repaired on the card {wtk.repairs} (GpuTokenizer), "
+          f"{api_tk.repairs} (load(), both calls); launches {launches} "
+          f"[{card}]")
 
     _n, lanes, bufs = wtk.stage(text[:(LANES - 1) * wtk.chunk + MARGIN])
     require(lanes == LANES, f"{lanes} lanes staged")
     N, pairs, work_of, plan = dispatch_pairs(wtk, bufs[0][0], bufs[0][1],
                                              True)
     errs = {name: compare(pairs, name) for name in TPU_KERNELS}
-    print(f"wide tokenizer, N={N}, {LANES} lanes x {CHUNK}, S = 21: "
+    print(f"{key} tokenizer, N={N}, {LANES} lanes x {CHUNK}, S = {shift}: "
           f"max_abs_err {errs}")
-    require(not any(errs.values()), f"kernels disagree at S = 21: {errs}")
+    require(not any(errs.values()),
+            f"kernels disagree at S = {shift}: {errs}")
     out = {}
     for name in TPU_KERNELS:
         kernel, plain = pairs[name]
@@ -1118,40 +1141,68 @@ def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
         ms = cuda_ms(kernel)
         device_ms = cuda_ms(kernel, queued=True)
         plain_ms = cuda_ms(plain, calls=1, repeat=3)
-        out[name] = {"wide_launches": launches[name],
-                     "wide_max_abs_err": errs[name], "wide_ms": ms,
-                     "wide_device_ms": device_ms, "wide_plain_ms": plain_ms,
-                     "wide_bound_ms": b_ms, "wide_bound_by": b_by}
+        out[name] = {f"{key}_launches": launches[name],
+                     f"{key}_max_abs_err": errs[name], f"{key}_ms": ms,
+                     f"{key}_device_ms": device_ms,
+                     f"{key}_plain_ms": plain_ms, f"{key}_bound_ms": b_ms,
+                     f"{key}_bound_by": b_by,
+                     f"{key}_roofline_share": b_ms / ms,
+                     f"{key}_device_roofline_share": b_ms / device_ms}
         print(f"{name}: {n_ent}-entry vocabulary kernel {ms:.4f} ms from "
               f"the host ({device_ms:.4f} on the card alone), plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
               f"{work_of[name][0]} B, {work_of[name][1]} ops), roofline "
               f"{100 * b_ms / ms:.2f}% ({100 * b_ms / device_ms:.2f}% of "
               f"the card alone) [{card}]")
-    print(f"shared memory at the wide vocabulary: {plan}")
+    print(f"shared memory at the {key} vocabulary: {plan}")
 
-    # the shift alone: decide on the same dispatch and tables at S = 20
-    # (its words wrong for indices past 2^20; timed only), in turns
     from tokenmonster_tpu_torch.ops.decide import decide
+    from tokenmonster_tpu_torch.ops.follow import follow
     from tokenmonster_tpu_torch.ops.match import match
+    from tokenmonster_tpu_torch.ops.scan import OVERLAP_SCAN
     buf, n = bufs[0][0], bufs[0][1]
     mm = match(buf, n, tabs)
     m, mb = mm if tabs.has_space else (mm, None)
-    narrow = copy.copy(tabs)
-    narrow.w3_shift = 20
-    turns = {20: [], 21: []}
-    for s in (21, 20, 20, 21):
-        turns[s].append(cuda_ms(lambda: decide(m, mb, buf, n, narrow if
-                                               s == 20 else tabs),
-                                queued=True))
-    out["decide"]["wide_s20_device_ms"] = statistics.mean(turns[20])
-    out["decide"]["wide_s21_device_ms"] = statistics.mean(turns[21])
-    print(f"decide on the card alone, the same dispatch and tables: S = 21 "
-          f"{turns[21]} ms, S = 20 {turns[20]} ms (in turns 21, 20, 20, 21) "
+    if shift == 21:
+        # the shift alone: decide on the same dispatch and tables at S = 20
+        # (its words wrong for indices past 2^20; timed only), in turns
+        narrow = copy.copy(tabs)
+        narrow.w3_shift = 20
+        turns = {20: [], 21: []}
+        for s in (21, 20, 20, 21):
+            turns[s].append(cuda_ms(lambda: decide(
+                m, mb, buf, n, narrow if s == 20 else tabs), queued=True))
+        what = "decide"
+    else:
+        # the tile word alone: follow of the same decisions with the token
+        # words cut to S = 21 (a u32 tile word; wrong for indices past
+        # 2^21, timed only) against S (a u64 tile word), in turns
+        ctl, tok = decide(m, mb, buf, n, tabs)
+        t64 = tok.long()
+        tok21 = ((t64 & ((1 << 21) - 1)) | ((t64 >> shift) & 3) << 21).to(
+            torch.int32)
+        t_rec = wtk._t_rec(False)
+        recs = {s: follow(ctl, w, n, CHUNK, LANES, OVERLAP_SCAN, t_rec, s)[0]
+                for s, w in ((shift, tok), (21, tok21))}
+        require(torch.equal(recs[shift], recs[21]),
+                "the u32 and u64 tile words walked different chains")
+        turns = {21: [], shift: []}
+        for s in (shift, 21, 21, shift):
+            w = tok if s == shift else tok21
+            turns[s].append(cuda_ms(lambda: follow(
+                ctl, w, n, CHUNK, LANES, OVERLAP_SCAN, t_rec, s),
+                queued=True))
+        what = "follow"
+    for s, runs in turns.items():
+        out[what][f"{key}_s{s}_device_ms"] = statistics.mean(runs)
+    order = sorted(turns, reverse=True)
+    print(f"{what} on the card alone, the same dispatch: "
+          + ", ".join(f"S = {s} {turns[s]} ms" for s in order)
+          + f" (in turns {order[0]}, {order[1]}, {order[1]}, {order[0]}) "
           f"[{card}]")
 
     staged = wtk.stage(text)
-    wtk.tokenize_staged(staged)
+    wtk.tokenize_staged(staged, text)
     chain_s = host_seconds(lambda: wtk._run_staged(staged, False, tabs,
                                                    wtk._compact, {}))
     vocab.route = "device"
@@ -1167,8 +1218,8 @@ def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
     require(vocab.route_counts["device"] == before + 3,
             "a timed call did not take the device route")
     require(api_tk.host_fallbacks == 0, "a timed call fell back")
-    print(f"wide tokenizer: device chain {chain_s * 1e3:.3f} ms over "
-          f"{len(text)} normalized bytes "
+    print(f"{key} tokenizer: device chain (one pass, no repair) "
+          f"{chain_s * 1e3:.3f} ms over {len(text)} normalized bytes "
           f"({len(text) / chain_s / 1e6:.3f} MB/s); e2e load().tokenize "
           f"{statistics.median(e2e):.3f} s over {len(raw)} raw bytes, "
           f"native {statistics.median(nat):.3f} s on the normalized text "
@@ -1176,31 +1227,59 @@ def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
     return out
 
 
-def bigpool_phase(dev, card: str) -> dict:
-    """The trainer at the reference configuration's pool scale: a
-    getalltokens pool whose superset holds more than 2^20 entries, armed
-    in REMAP mode; match on the masked superset tables, the rank gather,
-    decide and follow on candidate-sized tables against their plain
-    versions; seeded 32,000-id candidates scored on the whole text against
-    native; seeded ``train_vocab`` rounds against the native backend.
-    Returns, per kernel on the path, its numbers at these shapes."""
+def count_pools(raw: bytes, min_occurs) -> dict:
+    """getalltokens of ``raw`` (balanced, charset 1, nfd, capcode 2) at
+    each min occur of ``min_occurs``, from one count: the count and its
+    prunes between micro-chunks do not depend on the min occur, so the
+    count is made once at the smallest, and each pool is the count's
+    tokens that occur at least that often with the extra tokens added, as
+    ``get_all_tokens`` finishes a pool (``_finish_get_all_tokens``).
+    Returns {min occur: (counter, char_table, header)}."""
+    from tokenmonster_tpu_torch.core.normalize import Normalizer
+    from tokenmonster_tpu_torch.train import getalltokens as gat
+
+    counted, char_table, _header = gat.get_all_tokens(
+        raw, "balanced", charset=1, normalization="nfd", using_capcode=2,
+        min_occur_total=min(min_occurs), add_extra_tokens=False)
+    len(counted)                              # the native counts, read out
+    pools = {}
+    for m in min_occurs:
+        counter = gat.TokenCounter()
+        counter.counts = {k: c for k, c in counted.counts.items() if c >= m}
+        pools[m] = gat._finish_get_all_tokens(
+            counter, char_table, raw, level=2, using_capcode=2, charset=1,
+            normalizer=Normalizer("nfd"), only_latin=False,
+            only_valid=False, min_occur_total=m, min_occur_singles=m,
+            add_extra_tokens=True)
+    return pools
+
+
+def pool_phase(dev, card: str, raw: bytes, pool_of, min_occur: int,
+               work: str, key: str, at_least: int, shift: int,
+               candidates: int, rounds: int) -> dict:
+    """The trainer and the tokenizer at a pool's scale: the getalltokens
+    pool ``pool_of`` (``count_pools``) of ``raw`` at ``min_occur``, whose
+    superset must hold at least ``at_least`` entries, armed in REMAP mode;
+    match on the masked superset tables, the rank gather, decide and
+    follow on candidate-sized tables against their plain versions;
+    ``candidates`` seeded 32,000-id candidates scored on the whole text
+    against native; seeded ``train_vocab`` rounds against the native
+    backend; then the superset vocabulary as a tokenizer at S = ``shift``
+    (``wide_tokenizer_phase``).  Returns, per kernel on the path, its
+    numbers at these shapes, keys prefixed ``key``."""
     import random
-    import shutil
-    import tempfile
     from types import SimpleNamespace
     from unittest import mock
 
     from tokenmonster_tpu_torch.core import capcode as cc
     from tokenmonster_tpu_torch.core.normalize import Normalizer
     from tokenmonster_tpu_torch.core.vocab import normalize_and_capcode
-    from tokenmonster_tpu_torch.corpus import stdlib_text
-    from tokenmonster_tpu_torch.ops import _build
+    from tokenmonster_tpu_torch.ops import _build, tables
     from tokenmonster_tpu_torch.ops.hashmatch import build_hashmatch
-    from tokenmonster_tpu_torch.ops.scan import MARGIN
+    from tokenmonster_tpu_torch.ops.scan import MARGIN, remap_matches
     from tokenmonster_tpu_torch.parallel.score import score_strips
     from tokenmonster_tpu_torch.train import trainvocab as port
-    from tokenmonster_tpu_torch.train.getalltokens import (get_all_tokens,
-                                                           load_tokens_file,
+    from tokenmonster_tpu_torch.train.getalltokens import (load_tokens_file,
                                                            save_tokens_file)
     from tokenmonster_tpu_torch.train.score_helpers import \
         candidate_runtime_state
@@ -1216,220 +1295,226 @@ def bigpool_phase(dev, card: str) -> dict:
         return port.CandidateScorer(cand.charset, cand.using_capcode,
                                    cand.normalizer.flag).score(cand, datasets)
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="chip_smoke_bigpool_",
-                            dir=os.path.join(ROOT, "build"))
-    try:
-        raw, _dropped = stdlib_text(None, BIG_BYTES)
-        t0 = time.perf_counter()
-        counter, char_table, header = get_all_tokens(
-            raw, "balanced", charset=1, normalization="nfd",
-            using_capcode=2, min_occur_total=BIG_MIN_OCCUR)
-        gat_s = time.perf_counter() - t0
-        tok_path = os.path.join(work, "pool.tok")
-        save_tokens_file(tok_path, counter, char_table, header)
-        dic = load_tokens_file(tok_path)
-        capcode, norm_flag = dic["using_capcode"], dic["norm_flag"]
-        text = normalize_and_capcode(raw, capcode, Normalizer(norm_flag))
-        pool = port.superset_pool(tok_path)
-        print(f"pool: {len(counter)} candidates from {len(raw)} bytes of "
-              f"standard-library text (balanced, charset 1, nfd, capcode 2, "
-              f"min occur {BIG_MIN_OCCUR}) in {gat_s:.1f} s; superset pool "
-              f"{len(pool)} tokens ('D ' forms and the 256 bytes added); "
-              f"{len(text)} normalized bytes [{card}]")
+    counter, char_table, header = pool_of
+    tok_path = os.path.join(work, f"{key}.tok")
+    save_tokens_file(tok_path, counter, char_table, header)
+    dic = load_tokens_file(tok_path)
+    capcode, norm_flag = dic["using_capcode"], dic["norm_flag"]
+    text = normalize_and_capcode(raw, capcode, Normalizer(norm_flag))
+    pool = port.superset_pool(tok_path)
+    print(f"pool: {len(counter)} candidates from {len(raw)} bytes of "
+          f"standard-library text (balanced, charset 1, nfd, capcode 2, "
+          f"min occur {min_occur}); superset pool {len(pool)} tokens ('D ' "
+          f"forms and the 256 bytes added); {len(text)} normalized bytes "
+          f"[{card}]")
 
-        # arm, with its host parts timed: the superset vocabulary
-        # (Vocab._generate), the CHD placement, then the upload, key
-        # filter and token index
-        armed = {}
+    # arm, with its host parts timed: the superset vocabulary
+    # (Vocab._generate), the CHD placement, then the upload, key filter
+    # and token index
+    armed = {}
 
-        class Timed(port.GpuCandidateScorer):
-            def build(self, token_list):
-                t0 = time.perf_counter()
-                v = super().build(token_list)
-                armed.setdefault("build_s", time.perf_counter() - t0)
-                return v
-
-        def placement(*args, **kw):
+    class Timed(port.GpuCandidateScorer):
+        def build(self, token_list):
             t0 = time.perf_counter()
-            out = build_hashmatch(*args, **kw)
-            armed["placement_s"] = time.perf_counter() - t0
-            return out
+            v = super().build(token_list)
+            armed.setdefault("build_s", time.perf_counter() - t0)
+            return v
 
-        sc = Timed(dic["charset"], capcode, norm_flag, device=dev)
-        sc.set_specials([])
+    def placement(*args, **kw):
         t0 = time.perf_counter()
-        with mock.patch.object(port, "build_hashmatch", placement):
-            sc.prepare(pool)
+        out = build_hashmatch(*args, **kw)
+        armed["placement_s"] = time.perf_counter() - t0
+        return out
+
+    sc = Timed(dic["charset"], capcode, norm_flag, device=dev)
+    sc.set_specials([])
+    t0 = time.perf_counter()
+    with mock.patch.object(port, "build_hashmatch", placement):
+        sc.prepare(pool)
+    torch.cuda.synchronize()
+    arm_s = time.perf_counter() - t0
+    sup = sc._sup
+    base = sup.tokenizer.tables
+    n_sup = len(sup.vocab.tokens)
+    require(n_sup >= at_least,
+            f"superset of {n_sup} entries, fewer than {at_least}")
+    require(base.match_only, "the superset was not armed in REMAP mode")
+    fill = _popcount_share(base.filt)
+    print(f"superset: {n_sup} entries, armed in REMAP mode in "
+          f"{arm_s:.3f} s (vocabulary {armed['build_s']:.3f} s, CHD "
+          f"placement {armed['placement_s']:.3f} s, upload, key filter "
+          f"and index {arm_s - armed['build_s'] - armed['placement_s']:.3f}"
+          f" s); {base.idx1_bits}-bit index fields, token words of its "
+          f"vocabulary at S = {tables.w3_shift(sup.vocab)}, match tables "
+          f"{nbytes(base.fields, base.disp)} B, key filter "
+          f"{1 << base.filt_log2} bits, {100 * fill:.1f}% set [{card}]")
+
+    singles = sorted({t for t in dic["tokens"] if len(t) == 1}
+                     | {bytes([b]) for b in (cc.DELETE_TOKEN,
+                                             cc.CHARACTER_TOKEN,
+                                             cc.WORD_TOKEN)})
+    multi = [t for t in pool if len(t) > 1]
+    rng = random.Random(TRAIN_SEED)
+    tk = sup.tokenizer
+    _n, lanes, bufs = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
+    require(lanes == LANES, f"{lanes} lanes staged")
+    t = SimpleNamespace(buf=bufs[0][0], n=bufs[0][1], tk=tk,
+                        t_rec=tk._t_rec(False))
+    dispatches = len(tk._plan(len(text))[1])
+
+    errs = dict.fromkeys(TRAIN_KERNELS, 0)
+    gather_err = 0
+    mask_ms, gather_ms, score_ms, repairs = [], [], [], 0
+    for ci in range(candidates):
+        rng.shuffle(multi)
+        cand = sc.build(singles + multi[:TRAIN_VOCAB - len(singles)])
+        t0 = time.perf_counter()
+        tabs = candidate_runtime_state(sup, cand)
         torch.cuda.synchronize()
-        arm_s = time.perf_counter() - t0
-        sup = sc._sup
-        base = sup.tokenizer.tables
-        n_sup = len(sup.vocab.tokens)
-        require(n_sup > BIG_ENTRIES,
-                f"superset of {n_sup} entries, not above {BIG_ENTRIES}")
-        require(base.match_only, "the superset was not armed in REMAP mode")
-        fill = _popcount_share(base.filt)
-        print(f"superset: {n_sup} entries, armed in REMAP mode in "
-              f"{arm_s:.3f} s (vocabulary {armed['build_s']:.3f} s, CHD "
-              f"placement {armed['placement_s']:.3f} s, upload, key filter "
-              f"and index {arm_s - armed['build_s'] - armed['placement_s']:.3f}"
-              f" s); {base.idx1_bits}-bit index fields, match tables "
-              f"{nbytes(base.fields, base.disp)} B, key filter "
-              f"{1 << base.filt_log2} bits, {100 * fill:.1f}% set [{card}]")
+        mask_ms.append((time.perf_counter() - t0) * 1e3)
+        pairs, cwork = masked_pairs(t, tabs)
+        for name in TRAIN_KERNELS:
+            errs[name] = max(errs[name], compare(pairs, name))
+        gather, g_work = gather_work(t.buf, t.n, tabs)
+        # the gather's plain version: the same torch ops on the host
+        m_dev, mb_dev = pairs["match"][0]()
+        rank_cpu = tabs.rank.cpu()
+        gather_err = max(gather_err, max_abs_err(gather(), tuple(
+            remap_matches(w.cpu(), rank_cpu).to(w.device)
+            for w in (m_dev, mb_dev))))
+        gather_ms.append(cuda_ms(gather, queued=True) * dispatches)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got_s, got_t, got_m, r = score_strips(tk, tabs, [text],
+                                              len(cand.reverse))
+        end.record()
+        end.synchronize()
+        score_ms.append(start.elapsed_time(end))
+        repairs += r
+        want_s, want_t, want_m = native_score(cand, [text])
+        got_miss = set(np.nonzero(got_m)[0].tolist())
+        check(np.array_equal(got_s, want_s) and got_t == want_t
+              and got_miss == want_m,
+              f"{key} candidate {ci}: scores differ from native")
+        print(f"candidate {ci}: {len(cand.reverse)} ids; {got_t} tokens "
+              f"(native {want_t}), missing {sorted(got_miss)}, scores "
+              f"equal {np.array_equal(got_s, want_s)}, junction repairs "
+              f"{r}; match/decide/follow max_abs_err {errs}, rank gather "
+              f"max_abs_err {gather_err}")
+    check(not any(errs.values()) and not gather_err,
+          f"kernels disagree: {errs}, gather {gather_err}")
+    g_bound, g_by = bound(*g_work)
+    g_ms = cuda_ms(gather)
+    g_device_ms = cuda_ms(gather, queued=True)
+    print(f"per candidate: host masking {statistics.median(mask_ms):.3f}"
+          f" ms (upload and rank included), rank gather "
+          f"{statistics.median(gather_ms):.3f} ms on the card alone "
+          f"({dispatches} dispatches of two gathers, {g_device_ms:.4f} "
+          f"ms a dispatch, {g_ms:.4f} from the host, bound "
+          f"{g_bound:.4f} ms, {g_by}), device score "
+          f"{statistics.median(score_ms):.3f} ms over {len(text)} bytes "
+          f"(CUDA events, read-back included); medians of "
+          f"{candidates} [{card}]")
 
-        singles = sorted({t for t in dic["tokens"] if len(t) == 1}
-                         | {bytes([b]) for b in (cc.DELETE_TOKEN,
-                                                 cc.CHARACTER_TOKEN,
-                                                 cc.WORD_TOKEN)})
-        multi = [t for t in pool if len(t) > 1]
-        rng = random.Random(TRAIN_SEED)
-        tk = sup.tokenizer
-        _n, lanes, bufs = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
-        require(lanes == LANES, f"{lanes} lanes staged")
-        t = SimpleNamespace(buf=bufs[0][0], n=bufs[0][1], tk=tk,
-                            t_rec=tk._t_rec(False))
-        dispatches = len(tk._plan(len(text))[1])
+    # train_vocab on the card against the native backend, the loop's own
+    # scorer armed on the vocabulary and placement built above
+    scored, scorers, score_s, native_score_s = [], [], [], []
 
-        errs = dict.fromkeys(TRAIN_KERNELS, 0)
-        mask_ms, gather_ms, score_ms, repairs = [], [], [], 0
-        for ci in range(BIG_CANDIDATES):
-            rng.shuffle(multi)
-            cand = sc.build(singles + multi[:TRAIN_VOCAB - len(singles)])
+    class Recording(port.GpuCandidateScorer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            scorers.append(self)
+
+        def build(self, token_list):
+            if len(token_list) == len(pool) and token_list == pool:
+                return sup.vocab
+            return super().build(token_list)
+
+        def prepare(self, superset_tokens, hashmatch_tables=None):
+            same = list(superset_tokens) == pool
             t0 = time.perf_counter()
-            tabs = candidate_runtime_state(sup, cand)
+            super().prepare(superset_tokens,
+                            sup.hashmatch if same else None)
             torch.cuda.synchronize()
-            mask_ms.append((time.perf_counter() - t0) * 1e3)
-            pairs, cwork = masked_pairs(t, tabs)
-            for name in TRAIN_KERNELS:
-                errs[name] = max(errs[name], compare(pairs, name))
-            gather, g_work = gather_work(t.buf, t.n, tabs)
-            gather_ms.append(cuda_ms(gather, queued=True) * dispatches)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            got_s, got_t, got_m, r = score_strips(tk, tabs, [text],
-                                                  len(cand.reverse))
-            end.record()
-            end.synchronize()
-            score_ms.append(start.elapsed_time(end))
-            repairs += r
-            want_s, want_t, want_m = native_score(cand, [text])
-            got_miss = set(np.nonzero(got_m)[0].tolist())
-            check(np.array_equal(got_s, want_s) and got_t == want_t
-                  and got_miss == want_m,
-                  f"reference-scale candidate {ci}: scores differ from "
-                  "native")
-            print(f"candidate {ci}: {len(cand.reverse)} ids; {got_t} tokens "
-                  f"(native {want_t}), missing {sorted(got_miss)}, scores "
-                  f"equal {np.array_equal(got_s, want_s)}, junction repairs "
-                  f"{r}; match/decide/follow max_abs_err {errs}")
-        check(not any(errs.values()), f"kernels disagree: {errs}")
-        g_bound, g_by = bound(*g_work)
-        g_ms = cuda_ms(gather)
-        g_device_ms = cuda_ms(gather, queued=True)
-        print(f"per candidate: host masking {statistics.median(mask_ms):.3f}"
-              f" ms (upload and rank included), rank gather "
-              f"{statistics.median(gather_ms):.3f} ms on the card alone "
-              f"({dispatches} dispatches of two gathers, {g_device_ms:.4f} "
-              f"ms a dispatch, {g_ms:.4f} from the host, bound "
-              f"{g_bound:.4f} ms, {g_by}), device score "
-              f"{statistics.median(score_ms):.3f} ms over {len(text)} bytes "
-              f"(CUDA events, read-back included); medians of "
-              f"{BIG_CANDIDATES} [{card}]")
+            self.arm_s = time.perf_counter() - t0
 
-        # train_vocab on the card against the native backend, the loop's
-        # own scorer armed on the placement built above
-        scored, scorers, score_s, native_score_s = [], [], [], []
+        def score(self, cand, datasets):
+            t0 = time.perf_counter()
+            res = super().score(cand, datasets)
+            score_s.append(time.perf_counter() - t0)
+            scored.append((cand, datasets, res))
+            return res
 
-        class Recording(port.GpuCandidateScorer):
-            def __init__(self, *args, **kw):
-                super().__init__(*args, **kw)
-                scorers.append(self)
+    class TimedNative(port.CandidateScorer):
+        def score(self, cand, datasets):
+            t0 = time.perf_counter()
+            res = super().score(cand, datasets)
+            native_score_s.append(time.perf_counter() - t0)
+            return res
 
-            def prepare(self, superset_tokens, hashmatch_tables=None):
-                same = list(superset_tokens) == pool
-                t0 = time.perf_counter()
-                super().prepare(superset_tokens,
-                                sup.hashmatch if same else None)
-                torch.cuda.synchronize()
-                self.arm_s = time.perf_counter() - t0
+    log = _RoundLog()
+    logger = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
 
-            def score(self, cand, datasets):
-                t0 = time.perf_counter()
-                res = super().score(cand, datasets)
-                score_s.append(time.perf_counter() - t0)
-                scored.append((cand, datasets, res))
-                return res
+    def config(backend):
+        return port.TrainConfig(vocab_size=TRAIN_VOCAB, workers=2,
+                               fast=True, seed=TRAIN_SEED,
+                               max_rounds=rounds, backend=backend)
 
-        class TimedNative(port.CandidateScorer):
-            def score(self, cand, datasets):
-                t0 = time.perf_counter()
-                res = super().score(cand, datasets)
-                native_score_s.append(time.perf_counter() - t0)
-                return res
-
-        log = _RoundLog()
-        logger = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
-        logger.addHandler(log)
-        logger.setLevel(logging.INFO)
-
-        def config(backend):
-            return port.TrainConfig(vocab_size=TRAIN_VOCAB, workers=2,
-                                   fast=True, seed=TRAIN_SEED,
-                                   max_rounds=BIG_ROUNDS, backend=backend)
-
-        res_cuda = os.path.join(work, "cuda")
-        res_native = os.path.join(work, "native")
-        _build.reset_launches()
-        with mock.patch.object(port, "GpuCandidateScorer", Recording):
-            rounds_cuda, cuda_s = _train(lambda: port.train_vocab(
-                raw, tok_path, res_cuda, config("cuda"), device=dev), log)
-        torch.cuda.synchronize()
-        launches = dict(_build.launches)
-        with mock.patch.object(port, "CandidateScorer", TimedNative):
-            rounds_native, native_s = _train(lambda: port.train_vocab(
-                raw, tok_path, res_native, config("native")), log)
-        logger.removeHandler(log)
-        for line in rounds_cuda:
-            print(f"cuda   {line}")
-        check(rounds_cuda == rounds_native,
-              f"rounds differ from native: {rounds_native}")
-        files = _dir_bytes(res_cuda)
-        check(files == _dir_bytes(res_native),
-              f"results differ from native's: {sorted(files)}")
-        check(len(scorers) == 1
-              and scorers[0]._sup.tokenizer.tables.match_only,
-              "the loop's scorer was not armed once in REMAP mode")
-        for cand, datasets, (got_s, got_t, got_miss) in scored:
-            want_s, want_t, want_m = native_score(cand, datasets)
-            check(np.array_equal(got_s, want_s) and got_t == want_t
-                  and got_miss == want_m,
-                  "a candidate of the REMAP run differs from native")
-        check(all(launches[k] > 0 for k in TRAIN_KERNELS),
-              f"a trainer kernel was not launched: {launches}")
-        arm = scorers[0].arm_s if scorers else 0.0
-        written = (f"{len(files)} files equal ({', '.join(sorted(files))})"
-                   if files else f"no file written by either in {BIG_ROUNDS} "
-                   "rounds (the loop's first checkpoint is its midway "
-                   "target's)")
-        print(f"train_vocab at reference pool scale: {len(scored)} "
-              f"candidates scored on the card and by native, equal; "
-              f"{written}; junction repairs "
-              f"{scorers[0].repairs if scorers else 0}; launches {launches} "
-              f"({launches['match'] / max(1, len(scored)):.0f} dispatches a "
-              f"candidate: its strips, one or more each)")
-        print(f"wall per round: cuda {(cuda_s - arm) / BIG_ROUNDS:.3f} s after "
-              f"a {arm:.3f} s arm (placement shared), of which score calls "
-              f"{sum(score_s) / BIG_ROUNDS:.3f} s (two threads); native "
-              f"{native_s / BIG_ROUNDS:.3f} s, of which score calls "
-              f"{sum(native_score_s) / BIG_ROUNDS:.3f} s ({os.cpu_count()} "
-              f"host threads) [{card}]")
-        wide = wide_tokenizer_phase(dev, card, sup, raw, text, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    res_cuda = os.path.join(work, f"{key}_cuda")
+    res_native = os.path.join(work, f"{key}_native")
+    _build.reset_launches()
+    with mock.patch.object(port, "GpuCandidateScorer", Recording):
+        rounds_cuda, cuda_s = _train(lambda: port.train_vocab(
+            raw, tok_path, res_cuda, config("cuda"), device=dev), log)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    with mock.patch.object(port, "CandidateScorer", TimedNative):
+        rounds_native, native_s = _train(lambda: port.train_vocab(
+            raw, tok_path, res_native, config("native")), log)
+    logger.removeHandler(log)
+    for line in rounds_cuda:
+        print(f"cuda   {line}")
+    check(rounds_cuda == rounds_native,
+          f"rounds differ from native: {rounds_native}")
+    files = _dir_bytes(res_cuda)
+    check(files == _dir_bytes(res_native),
+          f"results differ from native's: {sorted(files)}")
+    check(len(scorers) == 1
+          and scorers[0]._sup.tokenizer.tables.match_only,
+          "the loop's scorer was not armed once in REMAP mode")
+    for cand, datasets, (got_s, got_t, got_miss) in scored:
+        want_s, want_t, want_m = native_score(cand, datasets)
+        check(np.array_equal(got_s, want_s) and got_t == want_t
+              and got_miss == want_m,
+              "a candidate of the REMAP run differs from native")
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+          f"a trainer kernel was not launched: {launches}")
+    arm = scorers[0].arm_s if scorers else 0.0
+    written = (f"{len(files)} files equal ({', '.join(sorted(files))})"
+               if files else f"no file written by either in {rounds} "
+               "rounds (the loop's first checkpoint is its midway "
+               "target's)")
+    print(f"train_vocab at {n_sup} superset entries: {len(scored)} "
+          f"candidates scored on the card and by native, equal; "
+          f"{written}; junction repairs "
+          f"{scorers[0].repairs if scorers else 0}; launches {launches} "
+          f"({launches['match'] / max(1, len(scored)):.0f} dispatches a "
+          f"candidate: its strips, one or more each)")
+    print(f"wall per round: cuda {(cuda_s - arm) / rounds:.3f} s after "
+          f"a {arm:.3f} s arm (vocabulary and placement shared), of which "
+          f"score calls {sum(score_s) / rounds:.3f} s (two threads); "
+          f"native {native_s / rounds:.3f} s, of which score calls "
+          f"{sum(native_score_s) / rounds:.3f} s ({os.cpu_count()} "
+          f"host threads) [{card}]")
+    require(not failed, f"{key} trainer: {len(failed)} checks failed")
+    wide = wide_tokenizer_phase(dev, card, sup, raw, text, work, shift,
+                                "wide" if shift == 21 else key)
 
     out = {}
+    p = "bigpool" if shift == 21 else f"{key}_pool"
     for name in TRAIN_KERNELS:
         kernel, plain = pairs[name]
         b_ms, b_by = bound(*cwork[name])
@@ -1438,14 +1523,14 @@ def bigpool_phase(dev, card: str) -> dict:
         plain_ms = cuda_ms(plain, calls=1, repeat=3)
         tables_of = (f"masked superset of {n_sup}" if name == "match" else
                      f"candidate tables of {tabs.meta.shape[1]} slots")
-        out[name] = {"bigpool_launches": launches[name],
-                     "bigpool_max_abs_err": errs[name], "bigpool_ms": ms,
-                     "bigpool_device_ms": device_ms,
-                     "bigpool_plain_ms": plain_ms,
-                     "bigpool_bound_ms": b_ms, "bigpool_bound_by": b_by,
-                     "bigpool_roofline_share": b_ms / ms,
-                     "bigpool_device_roofline_share": b_ms / device_ms}
-        print(f"{name}: reference-scale shapes kernel {ms:.4f} ms from the "
+        out[name] = {f"{p}_launches": launches[name],
+                     f"{p}_max_abs_err": errs[name], f"{p}_ms": ms,
+                     f"{p}_device_ms": device_ms,
+                     f"{p}_plain_ms": plain_ms,
+                     f"{p}_bound_ms": b_ms, f"{p}_bound_by": b_by,
+                     f"{p}_roofline_share": b_ms / ms,
+                     f"{p}_device_roofline_share": b_ms / device_ms}
+        print(f"{name}: {key} trainer shapes kernel {ms:.4f} ms from the "
               f"host ({device_ms:.4f} on the card alone), plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
               f"{cwork[name][0]} B, {cwork[name][1]} ops), roofline "
@@ -1454,14 +1539,49 @@ def bigpool_phase(dev, card: str) -> dict:
               f"{tables_of}) [{card}]")
     for name, numbers in wide.items():
         out.setdefault(name, {}).update(numbers)
-    out["match"]["bigpool_filter_fill"] = fill
-    out["decide"].update(bigpool_gather_ms=g_ms,
-                         bigpool_gather_device_ms=g_device_ms,
-                         bigpool_gather_bound_ms=g_bound)
-    print(f"shared memory at reference-scale shapes: "
+    out["match"][f"{p}_filter_fill"] = fill
+    out["decide"].update({f"{p}_gather_ms": g_ms,
+                          f"{p}_gather_device_ms": g_device_ms,
+                          f"{p}_gather_bound_ms": g_bound})
+    print(f"shared memory at {key} trainer shapes: "
           f"{smem_plan(t.buf, t.n, tabs, LANES, tk.chunk, t.t_rec)}")
-    require(not failed, f"reference-scale trainer: {len(failed)} checks "
-                        "failed")
+    return out
+
+
+def bigpool_phase(dev, card: str) -> dict:
+    """The trainer and the tokenizer at pool scale, two pools of all the
+    library's text counted once (``count_pools``): the reference
+    configuration's scale, a superset of more than 2^20 entries (S = 21),
+    then one of 2^21 - 1 entries or more (22-bit index fields, S = 22),
+    each through ``pool_phase``.  Returns, per kernel, both cells'
+    numbers."""
+    import shutil
+    import tempfile
+
+    from tokenmonster_tpu_torch.corpus import stdlib_text
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_bigpool_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        raw, _dropped = stdlib_text(None, BIG_BYTES)
+        t0 = time.perf_counter()
+        pools = count_pools(raw, (BIG_MIN_OCCUR, WIDER_MIN_OCCUR))
+        print(f"getalltokens of {len(raw)} bytes, pools at min occur "
+              f"{BIG_MIN_OCCUR} and {WIDER_MIN_OCCUR} from one count, in "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        out = pool_phase(dev, card, raw, pools.pop(BIG_MIN_OCCUR),
+                         BIG_MIN_OCCUR, work, "bigpool", BIG_ENTRIES + 1, 21,
+                         BIG_CANDIDATES, BIG_ROUNDS)
+        phase(f"trainer and tokenizer past 2^21 - 2 entries: min occur "
+              f"{WIDER_MIN_OCCUR}")
+        wider = pool_phase(dev, card, raw, pools.pop(WIDER_MIN_OCCUR),
+                           WIDER_MIN_OCCUR, work, "wider", WIDER_ENTRIES, 22,
+                           WIDER_CANDIDATES, WIDER_ROUNDS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name, numbers in wider.items():
+        out.setdefault(name, {}).update(numbers)
     return out
 
 # Imported at start-up by every Python process of the shell pipeline (it is
@@ -1771,7 +1891,7 @@ def main() -> int:
     wf, wfm = nv.tokenize(core.normalize(short))
     require(vocab.last_route == "device", "the short text was not routed "
                                           "to the device path")
-    require(tk.fallbacks == {"missing_byte": 1, "junction": 0},
+    require(tk.fallbacks == {"missing_byte": 1},
             f"fallbacks {tk.fallbacks}, expected one missing_byte")
     require(np.array_equal(np.asarray(fids, np.uint32), wf) and wfm > 0,
             "fallback ids differ from native")
@@ -1816,7 +1936,7 @@ def main() -> int:
                         "launch_floor_device_ms": floor_device_ms})
     print(f"shared memory at main-path shapes: {plan}")
     staged = tk.stage(norm)
-    tk.tokenize_staged(staged)
+    tk.tokenize_staged(staged, norm)
     chain_s = host_seconds(lambda: tk._run_staged(staged, False, tk.tables,
                                                   tk._compact, {}))
     print(f"device chain: {len(norm) / chain_s / 1e6:.3f} MB/s over "
@@ -1829,8 +1949,7 @@ def main() -> int:
         e2e.append(time.perf_counter() - t0)
     require(vocab.route_counts["device"] == before + REPEAT,
             "a timed call did not take the device route")
-    require(tk.fallbacks["missing_byte"] == 1
-            and tk.fallbacks["junction"] == 0, "a timed call fell back")
+    require(tk.fallbacks == {"missing_byte": 1}, "a timed call fell back")
     e2e_s = statistics.median(e2e)
     print(f"e2e load().tokenize: {len(raw) / e2e_s / 1e6:.3f} MB/s over "
           f"{len(raw)} raw bytes ({e2e_s * 1e3:.3f} ms, normalization and "

@@ -20,6 +20,7 @@ from tokenmonster_tpu_torch.corpus import (main_dispatch, one_row_vocab,
 from tokenmonster_tpu_torch.core.vocab import Vocab
 from tokenmonster_tpu_torch.native import NativeVocab
 from tokenmonster_tpu_torch.ops import _build, stitch, tables
+from tokenmonster_tpu_torch.ops import hashmatch as phm
 from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
 from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
 from tokenmonster_tpu_torch.ops.follow import window as follow_window
@@ -30,8 +31,9 @@ from tokenmonster_tpu_torch.train.score_helpers import candidate_runtime_state
 from tokenmonster_tpu_torch.train.trainvocab import GpuCandidateScorer
 
 from torch_cases import (LONG_KEYS, ZERO_STEP_TEXT, ZERO_STEP_TOKENS,
-                         edge_text, edge_vocab, native_score, wide_matches,
-                         wide_tables, zero_step_vocab)
+                         edge_text, edge_vocab, native_score,
+                         offset_placement, wide_matches, wide_tables,
+                         wide_words, zero_step_vocab)
 
 pytestmark = pytest.mark.gpu
 
@@ -367,6 +369,109 @@ def test_wide_words_on_card_equal_plain(dispatch):
     _compact_both(recs, toks, s, e, q, t_rec * LANES, 21)
 
 
+@pytest.mark.parametrize("S", [22, 23, 24])
+def test_wider_words_on_card_equal_plain(dispatch, S):
+    """Token words at S = 22, 23 and 24, every index moved up (by 2^21,
+    2^22, and to a largest index of 2^24 - 3): decide on tables moved up
+    as far (``torch_cases.wide_tables``), follow on the u64 tile word, and
+    compact with its delete marker at bit S + 2, each kernel equal to its
+    plain version at the main path's shapes."""
+    tk, buf, n = dispatch
+    n_ent = tk.tables.meta.shape[1]
+    off = (1 << 24) - n_ent - 2 if S == 24 else 1 << (S - 1)
+    m, mb = (wide_matches(w, off) for w in _decisions(tk, buf, n))
+    wide = wide_tables(tk.tables, off, S)
+    got = decide(m, mb, buf, n, wide)
+    want = decide_plain(m, mb, buf, n, wide)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    ctl, tok = got
+    assert ((tok.long() & ((1 << S) - 1)) >= 1 << (S - 1)).any()
+    t_rec = tk._t_rec(False)
+    got = follow(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec, S)
+    want = follow_plain(ctl, tok, n, CHUNK, LANES, OVERLAP_SCAN, t_rec, S)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    recs, toks, _done = got
+    _f, keep, _sn, ok, s, e = stitch.stitched_keep(recs, 0, LANES - 2,
+                                                   False)
+    assert bool(ok)
+    counts = keep.sum(0)
+    q = (counts.cumsum(0) - counts - s).to(torch.int32)
+    s, e = s.to(torch.int32), e.clamp(max=t_rec - 1).to(torch.int32)
+    _compact_both(recs, toks, s, e, q, t_rec * LANES, S)
+
+
+@pytest.mark.parametrize("lanes,chunk", [(1, 70_000), (512, 2048)])
+def test_follow_kernel_u64_tiles_equal_plain(dispatch, lanes, chunk):
+    """The u64 tile word (S = 24) on windows longer than its tile and on
+    the main path's lanes: the same records as the u32 word at S = 20."""
+    tk, buf, n = dispatch
+    m, mb = _decisions(tk, buf, n)
+    ctl, tok = decide(m, mb, buf, n, tk.tables)
+    wide = wide_words(ctl, tok, 1 << 23, 24)
+    t_rec = tk._t_rec(True, chunk)
+    args = _build.FollowArgs(N=buf.numel(), rows=1 if ctl.dim() == 1
+                             else ctl.shape[0], n=n, chunk=chunk,
+                             overlap=OVERLAP_SCAN,
+                             W=follow_window(chunk, OVERLAP_SCAN), L=lanes,
+                             t_rec=t_rec, w3_shift=24)
+    tile = _build.load_library().tm_follow_tile(ctypes.byref(args))
+    assert 0 < tile and (tile < args.W) == (lanes == 1)
+    got = follow(ctl, wide, n, chunk, lanes, OVERLAP_SCAN, t_rec, 24)
+    want = follow_plain(ctl, wide, n, chunk, lanes, OVERLAP_SCAN, t_rec, 24)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    narrow = follow(ctl, tok, n, chunk, lanes, OVERLAP_SCAN, t_rec)
+    _equal(got[0], narrow[0])
+
+
+@pytest.mark.parametrize("bits,top", [(22, (1 << 21) - 1), (24, 1 << 22),
+                                      (24, (1 << 24) - 3)])
+def test_match_kernel_at_wide_fields_equals_plain(dispatch, bits, top):
+    """Placements of 22 and 24 index bits with every index moved up
+    (``torch_cases.offset_placement``), indices up to 2^24 - 3 through the
+    warp's shared hit list (length << 24 | index): M and Mb equal the
+    plain version's."""
+    tk, buf, n = dispatch
+    v = tk.vocab
+    off = top - (len(v.tokens) - 1)
+    dt = tables.DeviceTables(v, offset_placement(
+        phm, v.tokens, off, bits, tables.space_prefix(v)),
+        match_only=True).to(buf.device)
+    got = match(buf, n, dt)
+    want = match_plain(buf, n, dt)
+    torch.cuda.synchronize()
+    got, want = (got, want) if dt.has_space else ((got,), (want,))
+    for g, w in zip(got, want):
+        _equal(g, w)
+    idx = (want[0].long() & 0xFFFFFFFF) >> 6
+    assert idx[want[0] != 0].min() >= off
+
+
+@pytest.mark.parametrize("S", [22, 24])
+def test_wider_tokenizer_on_card_equals_native(cuda, monkeypatch, S):
+    """A vocabulary with its limits lowered so that it takes S = 22 (24)
+    and a placement of 22-bit (24-bit) index fields tokenizes on the card
+    a multi-dispatch text equal to native, every kernel launched, no host
+    fallback."""
+    v = _real32k()
+    monkeypatch.setattr(tables, "MAX_ENTRIES", len(v.tokens))
+    monkeypatch.setattr(tables, "W3_SHIFT_WIDE", S)
+    monkeypatch.setattr(tables, "build_hashmatch", lambda keys, space_prefix:
+                        offset_placement(phm, keys, 0, S, space_prefix))
+    raw, _dropped = stdlib_text(v, 3 << 20)
+    data = v.normalize(raw)
+    tk = GpuTokenizer(v, device=cuda)
+    assert tk.tables.w3_shift == S and tk.tables.idx1_bits == S
+    _build.reset_launches()
+    ids, missing = tk.tokenize(data)
+    want, wmiss = NativeVocab(v).tokenize(data)
+    np.testing.assert_array_equal(ids, want)
+    assert missing == wmiss == 0 and tk.host_fallbacks == 0
+    assert all(c > 0 for c in tk.launches.values()), tk.launches
+
+
 def test_wide_tokenizer_on_card_equals_native(cuda, monkeypatch):
     """A vocabulary at the (lowered) limit tokenizes on the card at S =
     21, a multi-dispatch text equal to native, every kernel launched, no
@@ -398,7 +503,7 @@ def test_tokenizer_on_card_equals_native(cuda):
     want, wmiss = NativeVocab(v).tokenize(data)
     np.testing.assert_array_equal(ids, want)
     assert missing == wmiss == 0
-    assert tk.fallbacks == {"missing_byte": 0, "junction": 0}
+    assert tk.fallbacks == {"missing_byte": 0}
     assert all(c > 0 for c in tk.launches.values()), tk.launches
 
 
@@ -517,23 +622,50 @@ def test_junction_repairs_on_card(cuda):
     assert 2 <= sc.repairs <= 30
 
 
-@pytest.mark.parametrize("how", ["below_limit", "at_limit"])
+def test_tokenizer_junction_repairs_on_card(cuda):
+    """The tokenizer's junction repair on the card: a run of "a" after an
+    "x" (tokens "aa", "a", "x"; capcode 2) through two dispatches fails
+    every junction; repaired, the ids equal native's, no host fallback."""
+    v = Vocab()
+    v._generate(tokens=[b"aa", b"a", b"x"], charset=1,
+                normalize_string="none", using_capcode=2, level=5,
+                reset_token_ids=True)
+    tk = GpuTokenizer(v, device=cuda)
+    data = b"x" + b"a" * ((LANES - 1) * CHUNK + 70000) + b"xaaxa" * 20
+    assert len(tk._plan(len(data))[1]) == 2
+    _build.reset_launches()
+    ids, missing = tk.tokenize(data)
+    want, wmiss = NativeVocab(v).tokenize(data)
+    np.testing.assert_array_equal(ids, want)
+    assert missing == wmiss and tk.host_fallbacks == 0
+    assert 2 <= tk.repairs <= 30
+    assert all(c > 0 for c in tk.launches.values()), tk.launches
+
+
+@pytest.mark.parametrize("how", ["below_limit", "at_limit", "fields24"])
 def test_remap_scorer_on_card_equals_native(trainer, monkeypatch, how):
-    """REMAP mode on the card, on a superset below the entry limit and at
-    it (the limit lowered to its size): the superset's match tables, each
-    candidate's match words mapped to its indices, decide and follow on
-    candidate-sized tables equal their plain versions; scores equal
-    native's and those of a scorer armed on its own placement."""
+    """REMAP mode on the card, on a superset below the entry limit, at it
+    (the limit lowered to its size) and with a placement of 24-bit index
+    fields: the superset's match tables, each candidate's match words
+    mapped to its indices, decide and follow on candidate-sized tables
+    equal their plain versions; scores equal native's and those of a
+    scorer armed on its own placement."""
     sc0, cand, data = trainer
     sup0 = sc0._sup
     if how == "at_limit":
         monkeypatch.setattr(tables, "MAX_ENTRIES", len(sup0.vocab.tokens))
+    placement = sup0.hashmatch
+    if how == "fields24":
+        placement = offset_placement(phm, sup0.vocab.tokens, 0, 24,
+                                     tables.space_prefix(sup0.vocab))
     sc = GpuCandidateScorer(sup0.vocab.charset, sup0.vocab.using_capcode,
                             sup0.vocab.normalizer.flag, device=sc0.device)
     sc.set_specials([])
     sc.prepare([bytes(t) for t in sup0.vocab.tokens],
-               hashmatch_tables=sup0.hashmatch)
+               hashmatch_tables=placement)
     assert sc._sup.tokenizer.tables.match_only
+    assert sc._sup.tokenizer.tables.idx1_bits == (24 if how == "fields24"
+                                                  else 16)
     tk = sc._sup.tokenizer
     _n, _lanes, bufs = tk.stage(data[:(LANES - 1) * CHUNK + MARGIN])
     buf, n, _last = bufs[0]

@@ -14,14 +14,17 @@ import pytest
 import torch
 
 from tokenmonster_tpu_torch.ops import _build, stitch
+from tokenmonster_tpu_torch.ops import hashmatch as phm
 from tokenmonster_tpu_torch.ops.decide import decide_plain
 from tokenmonster_tpu_torch.ops.follow import follow_plain, window
 from tokenmonster_tpu_torch.ops.match import match_args, match_plain
-from tokenmonster_tpu_torch.ops.tables import W3_SHIFT, upload_tables
+from tokenmonster_tpu_torch.ops.tables import (W3_SHIFT, DeviceTables,
+                                              space_prefix, upload_tables)
 
 from torch_cases import (OVERLAP, VOCABS, ZERO_STEP_TEXT, edge_text,
-                         edge_vocab, hashmatch_tables, text_for, wide_matches,
-                         wide_tables, zero_step_vocab)
+                         edge_vocab, hashmatch_tables, offset_placement,
+                         text_for, wide_matches, wide_tables, wide_words,
+                         zero_step_vocab)
 
 N = 4096
 
@@ -47,6 +50,8 @@ def host_lib(tmp_path_factory):
     lib.tm_decide_host.argtypes = [ctypes.POINTER(_build.DecideArgs),
                                    ctypes.c_int]
     lib.tm_decide_tile.restype = ctypes.c_int
+    lib.tm_follow_word_bytes.argtypes = [ctypes.POINTER(_build.FollowArgs)]
+    lib.tm_match_hit_word.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -357,3 +362,105 @@ def test_compact_host_at_s21_equals_plain(host_lib, wide_stages, tiles):
     got = _compact_host(host_lib, recs, toks, s, e, q, out_len, tiles, 21)
     assert torch.equal(got, want)
     assert count > 0
+
+
+@pytest.mark.parametrize("bits,top", [(22, (1 << 21) - 1), (24, 1 << 22),
+                                      (24, (1 << 24) - 3)])
+@pytest.mark.parametrize("name", ["plain", "capcode", "utf16"])
+def test_match_host_at_wide_fields_equals_plain(host_lib, name, bits, top):
+    """Placements of 22 and 24 index bits (44 and 48 with the
+    space-stripped index, spilling into the second field word), indices up
+    to 2^24 - 3 (``torch_cases.offset_placement``): the kernel's key
+    compare and index decode against the plain version, on its warp tile
+    and on tiles of 61."""
+    v = VOCABS[name]()
+    off = top - (len(v.tokens) - 1)
+    dt = DeviceTables(v, offset_placement(phm, v.tokens, off, bits,
+                                          space_prefix(v)), match_only=True)
+    data = text_for(name, v, N - 700, seed=2)
+    buf = torch.zeros(N, dtype=torch.uint8)
+    buf[:len(data)] = torch.tensor(list(data), dtype=torch.uint8)
+    mm = match_plain(buf, len(data), dt)
+    m, mb = mm if dt.has_space else (mm, None)
+    assert ((m.long() & 0xFFFFFFFF) >> 6).max() >= off
+    for tile in (host_lib.tm_match_tile(), 61):
+        got_m, got_mb = _match_host(host_lib, dt, buf, len(data), tile)
+        assert torch.equal(got_m, m)
+        if mb is not None:
+            assert torch.equal(got_mb, mb)
+
+
+def test_match_hit_word_holds_24_bit_indices(host_lib):
+    """The kernel's shared hit list packs a hit as length << 24 | index
+    and gives back the match word (idx << 6) | (len + add) for every
+    length and for indices up to 2^24 - 3."""
+    for l in (1, 2, 40, 63):
+        for idx in (0, 1, (1 << 21) - 1, 1 << 21, 1 << 22, (1 << 24) - 3):
+            for add in (0, 1, 2):
+                want = (idx << 6) | (l + add)
+                got = host_lib.tm_match_hit_word(l, idx, add)
+                assert got & 0xFFFFFFFF == want, (l, idx, add)
+
+
+@pytest.fixture(scope="module", params=[22, 23, 24])
+def wider_stages(request, stages):
+    """The decisions of ``stages`` as a vocabulary of more than 2^(S - 1)
+    entries has them: token words at S = 22, 23 or 24 with every index
+    moved up by 2^(S - 1) (``torch_cases.wide_words``)."""
+    S = request.param
+    name, _dt, _buf, n, _m, _mb, ctl, tok = stages
+    wide = wide_words(ctl, tok, 1 << (S - 1), S)
+    assert (wide.long() >> (S - 1) & 1).any() and (wide.long() >> (S + 1)).any()
+    return name, S, n, ctl, wide
+
+
+@pytest.mark.parametrize("tw", [None, 7])
+def test_follow_host_at_wide_shifts_equals_plain(host_lib, wider_stages, tw):
+    """Token words of S + 2 = 24 to 26 bits: the follow tile's word is a
+    u64 there (9 + S + 2 bits), a u32 up to S = 21."""
+    _name, S, n, ctl, tok = wider_stages
+    want = follow_plain(ctl, tok, n, 32, 128, OVERLAP, 256, S)
+    got = _follow_host(host_lib, ctl, tok, n, 32, 128, 256, tw, S)
+    for w, g in zip(want, got):
+        assert torch.equal(g, w)
+    t = want[1].long()
+    assert ((t >> (S - 1)) & 1).any() and ((t >> S) & 3).any()
+    for s, size in ((20, 4), (21, 4), (S, 8)):
+        args = _build.FollowArgs(w3_shift=s)
+        assert host_lib.tm_follow_word_bytes(ctypes.byref(args)) == size
+
+
+@pytest.mark.parametrize("tiles", [None, (5, 7, 64)])
+def test_compact_host_at_wide_shifts_equals_plain(host_lib, wider_stages,
+                                                  tiles):
+    """The delete marker at bit S + 2, up to bit 26, above a token word of
+    S + 2 bits."""
+    _name, S, n, ctl, tok = wider_stages
+    chunk, L, t_rec = 32, 128, 256
+    recs, toks, _done = follow_plain(ctl, tok, n, chunk, L, OVERLAP, t_rec,
+                                     S)
+    s, e, q, count = _kept(recs, 0, min(-(-n // chunk), L) - 1, True)
+    out_len = t_rec * L
+    want = stitch.compact_plain(recs, toks, s, e, q, out_len, S)
+    got = _compact_host(host_lib, recs, toks, s, e, q, out_len, tiles, S)
+    assert torch.equal(got, want)
+    assert count > 0
+
+
+def test_decide_host_at_s22_equals_plain(host_lib):
+    """The decide kernel's code at S = 22 on tables whose indices are moved
+    up by 2^21: literals at 3 << 22, indices with bit 21 set."""
+    v = VOCABS["unk"]()
+    base = upload_tables(v, hashmatch_tables(v), "cpu")
+    dt = wide_tables(base, 1 << 21, 22)
+    data = text_for("unk", v, N - 700, seed=7)
+    buf = torch.zeros(N, dtype=torch.uint8)
+    buf[:len(data)] = torch.tensor(list(data), dtype=torch.uint8)
+    n = len(data)
+    m = wide_matches(match_plain(buf, n, base), 1 << 21)
+    ctl, tok = decide_plain(m, None, buf, n, dt)
+    got_c, got_t = _decide_host(host_lib, dt, buf, n, m, None, 61)
+    assert torch.equal(got_c.reshape(ctl.shape), ctl)
+    assert torch.equal(got_t.reshape(tok.shape), tok)
+    t = tok.long()
+    assert (t >> 22 == 3).any() and ((t & ((1 << 22) - 1)) >= 1 << 21).any()

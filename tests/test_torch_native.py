@@ -136,3 +136,43 @@ def test_more_ids_than_bytes_fit(entry, unk):
     assert res.returncode == 0, (res.returncode, res.stderr[-2000:])
     ok, n_ids, n_bytes = res.stdout.split()
     assert ok == "ok" and int(n_ids) > int(n_bytes)
+
+
+@pytest.mark.parametrize("threads", [2, 8])
+@pytest.mark.parametrize("capcode", [0, 2])
+def test_parallel_scan_when_chains_never_meet(capcode, threads):
+    """Tokens "aa", "a" and "x": after an "x", a run of "a" is tokenized in
+    pairs from an odd position, and a thread that starts inside the run
+    at an even one stays out of phase with it to its end, so the scan of
+    the thread before runs on past the next thread's start and splices
+    further on.  The stitch must not splice behind the state the output
+    has reached (it emitted that span twice: 61,319 ids for 35,081 at 8
+    threads); the ids equal the sequential scan's, the port's pure-Python
+    tokenizer's and the JAX package's pure-Python tokenizer's on a
+    vocabulary of the same tokens built there."""
+    import numpy as np
+
+    from tokenmonster_tpu.core import tokenizer as jax_tokenizer
+    from tokenmonster_tpu.core.vocab import Vocab as JaxVocab
+    from tokenmonster_tpu_torch.core.tokenizer import tokenize
+    from tokenmonster_tpu_torch.core.vocab import Vocab
+    from tokenmonster_tpu_torch.native import NativeVocab
+
+    def built(cls):
+        v = cls()
+        v._generate(tokens=[b"aa", b"a", b"x"], charset=1,
+                    normalize_string="none", using_capcode=capcode, level=5,
+                    reset_token_ids=True)
+        return v
+    v, jv = built(Vocab), built(JaxVocab)
+    nv = NativeVocab(v)
+    for text in (b"x" + b"a" * 70000 + b"xaaxa" * 20,
+                 (b"x" + b"a" * 20001 + b"xa") * 4):
+        jax_ids, jax_miss = jax_tokenizer.tokenize(jv, text)
+        want, want_miss = tokenize(v, text)
+        one, one_miss = nv.tokenize(text, threads=1)
+        got, miss = nv.tokenize(text, threads=threads)
+        np.testing.assert_array_equal(want, np.asarray(jax_ids, np.uint32))
+        np.testing.assert_array_equal(one, want)
+        np.testing.assert_array_equal(got, want)
+        assert miss == one_miss == want_miss == jax_miss

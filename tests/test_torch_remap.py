@@ -300,6 +300,6 @@ def test_remap_refusals(monkeypatch):
     got = sc.score(cand, [b"the quick brown fox"])
     want = native_score(cand, [b"the quick brown fox"])
     np.testing.assert_array_equal(got[0], want[0])
-    monkeypatch.setattr(tables, "IDX_BITS", 5)
+    monkeypatch.setattr(tables, "ID_BITS", 5)
     with pytest.raises(NotImplementedError, match="index fields"):
         sc.prepare(tokens)

@@ -79,31 +79,62 @@ def test_missing_byte_without_unk_falls_back(name):
     tk = GpuTokenizer(v, chunk=64, device="cpu")
     ids, missing = tk.tokenize(data)
     assert tk.host_fallbacks == 1 and tk.last_mode == "host"
-    assert tk.fallbacks == {"missing_byte": 1, "junction": 0}
+    assert tk.fallbacks == {"missing_byte": 1}
     want, wmiss = host_tokenize(v, data)
     np.testing.assert_array_equal(ids, np.asarray(want, np.uint32))
     assert missing == wmiss > 0
 
 
+def _run_vocab(capcode: int = 0):
+    """Tokens "aa", "a" and "x" (capcode 2 adds the delete token's second
+    fd row)."""
+    v = Vocab()
+    v._generate(tokens=[b"aa", b"a", b"x"], charset=1,
+                normalize_string="none", using_capcode=capcode, level=5,
+                reset_token_ids=True)
+    return v
+
+
 def test_junction_without_shared_state_falls_back():
     """Chains that stay out of phase: "x" then a run of "a" with tokens
     "aa" and "a" puts lane 0's tokens at odd offsets and every other lane's
-    at even ones, so no junction finds a shared state.  The data forces
-    the fallback; it is counted apart from missing bytes."""
-    v = Vocab()
-    v._generate(tokens=[b"aa", b"a", b"x"], charset=1,
-                normalize_string="none", using_capcode=0, level=5,
-                reset_token_ids=True)
+    at even ones, so no junction finds a shared state.  Given the text,
+    the tokenizer repairs the junctions on the device (a lane of the
+    text's own chain replaces the lanes after the last that holds it), as
+    the trainer does, and nothing falls back.  The repair starts from the
+    first pass's record grids: the text runs once, then once a repair."""
+    v = _run_vocab()
     data = b"x" + b"a" * 3000
     tk = GpuTokenizer(v, chunk=64, device="cpu")
+    passes = []
+    run_staged = tk._run_staged
+    tk._run_staged = lambda *a: passes.append(1) or run_staged(*a)
     ids, missing = tk.tokenize(data)
-    assert tk.fallbacks == {"missing_byte": 0, "junction": 1}
-    assert tk.last_mode == "host"
+    assert tk.fallbacks == {"missing_byte": 0}
+    assert tk.last_mode == "fast" and 1 <= tk.repairs <= 8
+    assert len(passes) == 1 + tk.repairs
     nids, nmiss = native_ids(v, data)
     np.testing.assert_array_equal(ids, nids)
     assert missing == nmiss == 0
     jids, jmiss = TpuTokenizer(v, chunk=64).tokenize(data)
     np.testing.assert_array_equal(ids, np.asarray(jids, np.uint32))
+
+
+@pytest.mark.parametrize("capcode", [0, 2])
+def test_junctions_repaired_across_dispatches(capcode):
+    """Lanes of 32 bytes: a run of "a" through three dispatches fails every
+    junction, bridge lanes included (capcode 2: on both fd rows); repaired
+    on the device in a few dozen repairs, no fallback, the ids equal
+    native's."""
+    v = _run_vocab(capcode)
+    data = b"x" + b"a" * 40000 + b"xaaxa" * 20
+    tk = GpuTokenizer(v, chunk=32, device="cpu")
+    assert len(tk._plan(len(data))[1]) == 3
+    ids, missing = tk.tokenize(data)
+    assert tk.host_fallbacks == 0 and 3 <= tk.repairs <= 30
+    nids, nmiss = native_ids(v, data)
+    np.testing.assert_array_equal(ids, nids)
+    assert missing == nmiss == 0
 
 
 def test_splice_past_the_first_16_records():
@@ -120,7 +151,7 @@ def test_splice_past_the_first_16_records():
     data = (b"x" + b"a" * 119 + b"y") * 40
     tk = GpuTokenizer(v, chunk=256, device="cpu")
     ids, missing = tk.tokenize(data)
-    assert tk.fallbacks == {"missing_byte": 0, "junction": 0}
+    assert tk.fallbacks == {"missing_byte": 0}
     assert tk.last_mode == "fast"
     nids, nmiss = native_ids(v, data)
     np.testing.assert_array_equal(ids, nids)

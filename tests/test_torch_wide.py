@@ -12,7 +12,8 @@ dictionary indices are moved up by 2^20 (``torch_cases.wide_tables``: bit
 20 of every index set), and the slice against ``TpuTokenizer(engine=
 "decision")`` and the port's native tokenizer, with ``tables.MAX_ENTRIES``
 lowered so that a small vocabulary takes S = 21, as
-``tests/test_torch_train.py`` lowers it.
+``tests/test_torch_train.py`` lowers it.  ``tests/test_torch_wide24.py``
+does the same at S = 22 to 24 and placement fields of 22 to 24 bits.
 """
 
 import os
@@ -257,15 +258,15 @@ def test_literal_ids_above_the_limit_round_trip(monkeypatch, tmp_path):
 
 def test_placement_limit_raises_on_device_and_routes_auto_to_native(
         monkeypatch):
-    """A vocabulary of more entries than a placement holds (its index
-    fields narrowed here): "auto" takes native, decided from its size and
-    counted, with no device tokenizer built; "device" raises, naming the
-    roadmap item."""
+    """A vocabulary of more entries than a placement holds (the kernels'
+    index fields narrowed here from their 24 bits): "auto" takes native,
+    decided from its size and counted, with no device tokenizer built;
+    "device" raises, naming the index fields' width."""
     path = os.path.join(EXAMPLES, "realtext-1024-fast.vocab")
     ref = tokenmonster_tpu.load(path)
     v = tokenmonster_tpu_torch.load(path, device="cpu")
     n = len(v._core.tokens)
-    monkeypatch.setattr(tables, "IDX_BITS", n.bit_length() - 1)
+    monkeypatch.setattr(tables, "ID_BITS", n.bit_length() - 1)
     assert tables.placement_limit() < n
     monkeypatch.setattr(v, "TPU_THRESHOLD", 16)
     text = _raw_text(6000, seed=2, misses=False).decode()
@@ -275,6 +276,6 @@ def test_placement_limit_raises_on_device_and_routes_auto_to_native(
         assert v.route_counts == {"device": 0, "native": k}
     assert v._tpu is None
     v.route = "device"
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(NotImplementedError, match="index fields"):
         v.tokenize(text)
     assert v.route_counts == {"device": 0, "native": 2}

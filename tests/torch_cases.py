@@ -199,12 +199,12 @@ def decisions(name, n_bytes, N, misses=True):
 WIDE_OFFSET = 1 << 20
 
 
-def wide_tables(dt, off: int = WIDE_OFFSET):
-    """``dt``'s decide and id tables with S = 21 and every dictionary index
-    moved up by ``off`` (below it, entries of zero planes): what decide
-    and id resolution read for the same text in a vocabulary of more than
-    ``off`` entries, so ``off = 2^20`` sets every index's bit 20.  Match
-    words go with them through ``wide_matches``."""
+def wide_tables(dt, off: int = WIDE_OFFSET, w3_shift: int = W3_SHIFT_WIDE):
+    """``dt``'s decide and id tables with S = ``w3_shift`` and every
+    dictionary index moved up by ``off`` (below it, entries of zero
+    planes): what decide and id resolution read for the same text in a
+    vocabulary of more than ``off`` entries, so ``off = 2^20`` sets every
+    index's bit 20.  Match words go with them through ``wide_matches``."""
     n, dev = dt.meta.shape[1], dt.meta.device
     meta = torch.zeros((2, meta_width(off + n)), dtype=torch.int32,
                        device=dev)
@@ -215,7 +215,7 @@ def wide_tables(dt, off: int = WIDE_OFFSET):
     out = types.SimpleNamespace(**{k: getattr(dt, k) for k in (
         "bb", "has_delete", "has_unk", "unk_token", "delete_token",
         "lil_off", "has_space")})
-    out.meta, out.ids3, out.w3_shift = meta, ids3, W3_SHIFT_WIDE
+    out.meta, out.ids3, out.w3_shift = meta, ids3, w3_shift
     out.entries = decide_entries(meta, 2 if dt.has_delete else 1)
     return out
 
@@ -223,6 +223,60 @@ def wide_tables(dt, off: int = WIDE_OFFSET):
 def wide_matches(m, off: int = WIDE_OFFSET):
     """Match words (int32) with their indices moved up by ``off``."""
     return None if m is None else torch.where(m != 0, m + (off << 6), m)
+
+
+def wide_words(ctl, tok, off: int, w3_shift: int):
+    """Token words of S = 20 (``tok``, with their decisions ``ctl``) as a
+    vocabulary of more than ``off`` entries has them at S = ``w3_shift``:
+    every token's index moved up by ``off`` (a literal id and a word with
+    no token are not), the w3 field moved to the new shift."""
+    t = tok.long() & 0xFFFFFFFF
+    idx, w3 = t & ((1 << 20) - 1), (t >> 20) & 3
+    moved = (((ctl.long() >> 7) & 1) != 0) & (w3 != 3)
+    return (torch.where(moved, idx + off, idx) | (w3 << w3_shift)).to(
+        torch.int32)
+
+
+def offset_placement(hm, keys, off: int, idx1_bits: int,
+                     space_prefix: bytes | None = None):
+    """A hash placement of ``keys`` built with the hash-match module ``hm``
+    (the port's ``ops/hashmatch.py`` or the JAX package's) as its
+    ``build_hashmatch`` builds one, with every dictionary index moved up by
+    ``off`` and packed in ``idx1_bits``-bit fields, one
+    ``build_class_table`` per length class: the placement a vocabulary of
+    more than ``off`` entries has for these keys, at a small one's size."""
+    single = np.full(256, -1, np.int32)
+    space_single = np.full(256, -1, np.int32) if space_prefix else None
+    space_empty = -1
+    by_len = {}
+
+    def slot(k):
+        return by_len.setdefault(len(k), {}).setdefault(k, [k, -1, -1])
+
+    for i, k in enumerate(keys, off):
+        k = bytes(k)
+        if len(k) == 1:
+            single[k[0]] = i
+        elif len(k) >= 2:
+            slot(k)[1] = i
+        if space_prefix is not None and k.startswith(space_prefix):
+            rest = k[len(space_prefix):]
+            if not rest:
+                space_empty = i
+            elif len(rest) == 1:
+                space_single[rest[0]] = i
+            else:
+                slot(rest)[2] = i
+    n_idx = 2 if space_prefix is not None else 1
+    classes = [hm.build_class_table(ln, list(e.values()), n_idx=n_idx,
+                                    idx1_bits=idx1_bits)
+               for ln, e in sorted(by_len.items())]
+    return hm.HashMatchTables(
+        classes=classes, single=single,
+        max_len=max((len(bytes(k)) for k in keys), default=0),
+        n_keys=len(keys), has_space=space_prefix is not None,
+        space_single=space_single, space_empty=space_empty,
+        lil_off=len(space_prefix) if space_prefix else 1)
 
 
 def u32(t):

@@ -322,10 +322,11 @@ class Vocab:
 
     def _tokenize_one(self, item) -> np.ndarray:
         """One input through the route ``route`` picks, recorded in
-        ``last_route`` and ``route_counts``.  Under "auto" a vocabulary of
-        more entries than a hash placement holds
-        (``tables.placement_limit``), which the device tables refuse,
-        takes the native route; "device" raises for it."""
+        ``last_route`` and ``route_counts``.  Every vocabulary of the
+        format's 24-bit ids, up to 2^24 - 2 entries
+        (``tables.placement_limit``), is a device candidate; under "auto" a
+        larger one, which the device tables refuse, takes the native route,
+        and "device" raises for it."""
         if isinstance(item, str):
             item = item.encode("utf-8")
         normalized = self._core.normalize(item)

@@ -15,6 +15,28 @@
 
 #include "tm_kernels.cuh"
 
+namespace {
+
+// Lanes walked on tiles of ``tw`` window positions in the kernel's tile
+// word: a u32, or a u64 where the token words need it (tmk::follow_wide).
+template <class W>
+void follow_host(const tmk::FollowArgs* a, int tw) {
+  const int32_t rows = a->rows > 1 ? a->rows : 1;
+  std::vector<W> tile(static_cast<std::size_t>(rows) * tw);
+  for (int32_t lane = 0; lane < a->L; ++lane) {
+    tmk::FollowLane s = tmk::follow_begin(*a, lane);
+    for (int32_t tb = 0;; tb = s.pos_rel) {
+      for (int32_t k = 0; k < tw; ++k)
+        for (int32_t r = 0; r < rows; ++r)
+          tile[static_cast<std::size_t>(k) * rows + r] = tmk::follow_word<W>(*a, s.start, r, (int64_t)tb + k);
+      if (!tmk::follow_walk<W>(*a, lane, s, tile.data(), tb, tw)) break;
+    }
+    tmk::follow_end(*a, lane, s, 0, 1);
+  }
+}
+
+}  // namespace
+
 extern "C" {
 
 void tm_match_host(const tmk::MatchArgs* a, int tile) {
@@ -50,19 +72,18 @@ void tm_decide_host(const tmk::DecideArgs* a, int tile) {
 int tm_decide_tile() { return tmk::DECIDE_TILE; }
 
 void tm_follow_host(const tmk::FollowArgs* a, int tw) {
-  const int32_t rows = a->rows > 1 ? a->rows : 1;
-  std::vector<uint32_t> tile(static_cast<std::size_t>(rows) * tw);
-  for (int32_t lane = 0; lane < a->L; ++lane) {
-    tmk::FollowLane s = tmk::follow_begin(*a, lane);
-    for (int32_t tb = 0;; tb = s.pos_rel) {
-      for (int32_t k = 0; k < tw; ++k)
-        for (int32_t r = 0; r < rows; ++r)
-          tile[static_cast<std::size_t>(k) * rows + r] = tmk::follow_word(*a, s.start, r, (int64_t)tb + k);
-      if (!tmk::follow_walk(*a, lane, s, tile.data(), tb, tw)) break;
-    }
-    tmk::follow_end(*a, lane, s, 0, 1);
-  }
+  if (tmk::follow_wide(a->w3_shift))
+    follow_host<uint64_t>(a, tw);
+  else
+    follow_host<uint32_t>(a, tw);
 }
+
+// Bytes of the follow kernel's tile word at these arguments.
+int tm_follow_word_bytes(const tmk::FollowArgs* a) { return tmk::follow_word_bytes(a->w3_shift); }
+
+// The match word the kernel's shared hit list gives for a hit of length
+// ``l`` and index ``idx``, its length plus ``add``.
+int tm_match_hit_word(int l, int idx, int add) { return tmk::match_hit_word(tmk::match_hit(l, idx), add); }
 
 // Tiles of ``lane_tile`` lanes x ``rec_tile`` record rows turned through
 // an array, then chunks of ``zero_chunk`` output slots (a multiple of 32)

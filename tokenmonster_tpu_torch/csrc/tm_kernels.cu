@@ -43,7 +43,8 @@
 //         first token stands.
 // follow  replaces tokenmonster_tpu/ops/pallas_follow.py::make_follow_kernel.
 //         FOLLOW_LANES lanes per block.  The whole block copies each lane's
-//         window, w = tmk::follow_pack(ctl, tok) of every fd row, into
+//         window, w = tmk::follow_pack(ctl, tok) of every fd row (a u32, or
+//         a u64 where the token words take more than 21 + 2 bits), into
 //         shared memory with 16-byte loads; then one thread per lane walks
 //         the serial chain there, a shared-memory read per step instead of
 //         two dependent global reads.  Its record writes, one word per lane and
@@ -117,8 +118,9 @@ __device__ void copy_words(T* dst, const T* src, int32_t n) {
 // offset t: every lane probes its longest candidate; then the lengths the
 // lanes still have go to one list, the whole warp probes them (a lane with
 // many no longer holds up 31 lanes with none), and each lane keeps its
-// longest hits, gathered with atomicMax on (length << 21 | index).  A lane
-// whose lengths do not fit the list probes them alone afterwards.
+// longest hits, gathered with atomicMax on tmk::match_hit (length << 24 |
+// index).  A lane whose lengths do not fit the list probes them alone
+// afterwards.
 __device__ void match_lane(const tmk::MatchArgs& a, const tmk::MatchTables& tb, uint64_t lengths,
                            const uint32_t* win, int32_t t, int64_t p0, uint32_t* queue,
                            uint32_t* res) {
@@ -152,14 +154,14 @@ __device__ void match_lane(const tmk::MatchArgs& a, const tmk::MatchTables& tb, 
     const int32_t tt = (int32_t)(queue[j] & 255u), l = (int32_t)(queue[j] >> 8);
     int32_t im, is;
     tmk::match_probe(a, tb, win, tt, l, tmk::hash_window(win, tt, l), im, is);
-    if (im > 0) atomicMax(res + (tt & 31), ((uint32_t)l << 21) | (uint32_t)(im - 1));
-    if (is > 0) atomicMax(res + 32 + (tt & 31), ((uint32_t)l << 21) | (uint32_t)(is - 1));
+    if (im > 0) atomicMax(res + (tt & 31), tmk::match_hit(l, im - 1));
+    if (is > 0) atomicMax(res + 32 + (tt & 31), tmk::match_hit(l, is - 1));
   }
   __syncwarp();
   if (listed && n) {
     const uint32_t rm = res[lane], rb = res[32 + lane];
-    if (st.need_m && rm) st.best = (int32_t)(((rm & 0x1FFFFFu) << 6) | (rm >> 21));
-    if (st.need_b && rb) st.bestb = (int32_t)(((rb & 0x1FFFFFu) << 6) | ((rb >> 21) + a.lil_off));
+    if (st.need_m && rm) st.best = tmk::match_hit_word(rm, 0);
+    if (st.need_b && rb) st.bestb = tmk::match_hit_word(rb, a.lil_off);
     st.cand = 0;
   }
   while (valid && tmk::match_wants(st)) tmk::match_next(a, tb, win, t, st);
@@ -240,12 +242,25 @@ __global__ void __launch_bounds__(DECIDE_THREADS) decide_kernel(tmk::DecideArgs 
   }
 }
 
+// Four tile words to dst[0..3], 16-byte aligned: one 16-byte store of u32
+// words, two of u64 words.
+__device__ __forceinline__ void store4(uint32_t* dst, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  *(uint4*)dst = make_uint4(a, b, c, d);
+}
+
+__device__ __forceinline__ void store4(uint64_t* dst, uint64_t a, uint64_t b, uint64_t c, uint64_t d) {
+  ((ulonglong2*)dst)[0] = make_ulonglong2(a, b);
+  ((ulonglong2*)dst)[1] = make_ulonglong2(c, d);
+}
+
 // Window positions [k0, k0 + tw) of every fd row of the lane starting at
 // ``start`` into ``dst`` (the tile layout of tm_kernels.cuh), by the whole
 // block: 16-byte loads of ctl and tok where they are aligned and below
 // both the window's last position and N, word loads for the rest.
-__device__ void fill_tile(const tmk::FollowArgs& a, int64_t start, int32_t k0, uint32_t* dst,
-                          int32_t tw, int32_t rows) {
+template <class W>
+__device__ void fill_tile(const tmk::FollowArgs& a, int64_t start, int32_t k0, W* dst, int32_t tw,
+                          int32_t rows) {
+  using tmk::follow_pack;
   const int64_t q0 = start + k0;
   int64_t exact = tw;
   if (a.W - k0 < exact) exact = a.W - k0;
@@ -258,31 +273,33 @@ __device__ void fill_tile(const tmk::FollowArgs& a, int64_t start, int32_t k0, u
     const uint4* t0 = (const uint4*)(a.tok + q0);
     const uint4* c1 = (const uint4*)(a.ctl + a.N + q0);
     const uint4* t1 = (const uint4*)(a.tok + a.N + q0);
-    uint4* d4 = (uint4*)dst;
     for (int32_t j = threadIdx.x; j < n4; j += blockDim.x) {
       const uint4 ca = __ldg(c0 + j), ta = __ldg(t0 + j), cb = __ldg(c1 + j), tb = __ldg(t1 + j);
-      d4[2 * j] = make_uint4(tmk::follow_pack(ca.x, ta.x), tmk::follow_pack(cb.x, tb.x),
-                             tmk::follow_pack(ca.y, ta.y), tmk::follow_pack(cb.y, tb.y));
-      d4[2 * j + 1] = make_uint4(tmk::follow_pack(ca.z, ta.z), tmk::follow_pack(cb.z, tb.z),
-                                 tmk::follow_pack(ca.w, ta.w), tmk::follow_pack(cb.w, tb.w));
+      store4(dst + 8 * j, follow_pack<W>(ca.x, ta.x), follow_pack<W>(cb.x, tb.x), follow_pack<W>(ca.y, ta.y),
+             follow_pack<W>(cb.y, tb.y));
+      store4(dst + 8 * j + 4, follow_pack<W>(ca.z, ta.z), follow_pack<W>(cb.z, tb.z),
+             follow_pack<W>(ca.w, ta.w), follow_pack<W>(cb.w, tb.w));
     }
   } else if (n4 > 0) {
     const uint4* c0 = (const uint4*)(a.ctl + q0);
     const uint4* t0 = (const uint4*)(a.tok + q0);
-    uint4* d4 = (uint4*)dst;
     for (int32_t j = threadIdx.x; j < n4; j += blockDim.x) {
       const uint4 ca = __ldg(c0 + j), ta = __ldg(t0 + j);
-      d4[j] = make_uint4(tmk::follow_pack(ca.x, ta.x), tmk::follow_pack(ca.y, ta.y),
-                         tmk::follow_pack(ca.z, ta.z), tmk::follow_pack(ca.w, ta.w));
+      store4(dst + 4 * j, follow_pack<W>(ca.x, ta.x), follow_pack<W>(ca.y, ta.y), follow_pack<W>(ca.z, ta.z),
+             follow_pack<W>(ca.w, ta.w));
     }
   }
   for (int32_t i = 4 * n4 * rows + threadIdx.x; i < tw * rows; i += blockDim.x)
-    dst[i] = tmk::follow_word(a, start, i % rows, (int64_t)k0 + i / rows);
+    dst[i] = tmk::follow_word<W>(a, start, i % rows, (int64_t)k0 + i / rows);
 }
 
+// W: the tile word, uint32_t up to S = 21, uint64_t above
+// (tmk::follow_wide).
+template <class W>
 __global__ void __launch_bounds__(FOLLOW_THREADS) follow_kernel(tmk::FollowArgs a, int32_t tw,
                                                                  int32_t lpb) {
-  extern __shared__ __align__(16) uint32_t sm[];
+  extern __shared__ __align__(16) uint32_t sm_words[];
+  W* sm = (W*)sm_words;
   __shared__ int32_t base[FOLLOW_LANES];
   __shared__ int32_t need[FOLLOW_LANES];
   __shared__ tmk::FollowLane lanes[FOLLOW_LANES];
@@ -297,12 +314,12 @@ __global__ void __launch_bounds__(FOLLOW_THREADS) follow_kernel(tmk::FollowArgs 
   for (;;) {
     __syncthreads();
     for (int32_t i = 0; i < lpb; ++i)
-      if (need[i]) fill_tile(a, lanes[i].start, base[i], sm + (size_t)i * rows * tw, tw, rows);
+      if (need[i]) fill_tile<W>(a, lanes[i].start, base[i], sm + (size_t)i * rows * tw, tw, rows);
     __syncthreads();
     int32_t more = 0;
     if (me < lpb && need[me]) {
       tmk::FollowLane s = lanes[me];
-      more = tmk::follow_walk(a, lane0 + me, s, sm + (size_t)me * rows * tw, base[me], tw);
+      more = tmk::follow_walk<W>(a, lane0 + me, s, sm + (size_t)me * rows * tw, base[me], tw);
       lanes[me] = s;
       base[me] = s.pos_rel;
       need[me] = more;
@@ -392,7 +409,7 @@ cudaError_t device_limits(DeviceLimits** out) {
         cudaSuccess)
       return e;
     for (const void* k : {(const void*)match_kernel<true>, (const void*)match_kernel<false>,
-                          (const void*)follow_kernel})
+                          (const void*)follow_kernel<uint32_t>, (const void*)follow_kernel<uint64_t>})
       if ((e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     d.smem_optin - SMEM_SLACK)) != cudaSuccess)
         return e;
@@ -420,7 +437,8 @@ int follow_lanes_per_block(const tmk::FollowArgs* a) {
 // Tile width of a follow launch: as much of each lane's window as fits.
 int follow_tile(const tmk::FollowArgs* a, const DeviceLimits& d) {
   const int rows = a->rows > 1 ? a->rows : 1;
-  const int64_t fit = (int64_t)(d.smem_optin - SMEM_SLACK) / (4 * follow_lanes_per_block(a) * rows);
+  const int64_t fit =
+      (int64_t)(d.smem_optin - SMEM_SLACK) / (tmk::follow_word_bytes(a->w3_shift) * follow_lanes_per_block(a) * rows);
   return (int)(a->W < fit ? a->W : fit) & ~3;  // 16-byte aligned lane tiles
 }
 
@@ -497,13 +515,17 @@ int tm_follow_launch(const tmk::FollowArgs* a, void* stream) {
   const int tw = follow_tile(a, *d);
   const int lpb = follow_lanes_per_block(a);
   const int rows = a->rows > 1 ? a->rows : 1;
-  const size_t bytes = (size_t)4 * lpb * rows * tw;
-  follow_kernel<<<blocks_for(a->L, lpb), FOLLOW_THREADS, bytes, (cudaStream_t)stream>>>(*a, tw, lpb);
+  const size_t bytes = (size_t)tmk::follow_word_bytes(a->w3_shift) * lpb * rows * tw;
+  if (tmk::follow_wide(a->w3_shift))
+    follow_kernel<uint64_t><<<blocks_for(a->L, lpb), FOLLOW_THREADS, bytes, (cudaStream_t)stream>>>(*a, tw, lpb);
+  else
+    follow_kernel<uint32_t><<<blocks_for(a->L, lpb), FOLLOW_THREADS, bytes, (cudaStream_t)stream>>>(*a, tw, lpb);
   return (int)cudaGetLastError();
 }
 
 // The follow kernel's tile width (window positions per lane and fd row
-// held in shared memory) for a launch with these arguments.
+// held in shared memory, in u32 words up to S = 21 and u64 above) for a
+// launch with these arguments.
 int tm_follow_tile(const tmk::FollowArgs* a) {
   DeviceLimits* d = nullptr;
   if (device_limits(&d) != cudaSuccess) return 0;

@@ -17,8 +17,11 @@
 //           lane l
 // S, the token word's shift (``w3_shift`` in the argument structs), is 20
 // below 2^20 dictionary entries, where the words are the JAX package's bit
-// for bit, and 21 from there up to the hash placement's limit of 2^21 - 2
-// entries (ops/tables.py::w3_shift); a compacted word fits 24 bits.
+// for bit, and from there the fewest bits, 21 to 24, that hold every
+// dictionary index and the unk and delete ids (ops/tables.py::w3_shift); a
+// compacted word fits S + 3 bits, 27 at most.  The hash placement's index
+// fields hold idx+1 in up to 24 bits (2^24 - 2 entries, every vocabulary of
+// the format's 24-bit ids), so a match word fits 30 bits.
 //
 // The argument structs are mirrored field for field by ctypes.Structure
 // classes in ops/_build.py; change both together.
@@ -418,6 +421,21 @@ TM_HD void match_take(const MatchArgs& a, MatchState& st, int32_t l, int32_t im,
 
 TM_HD bool match_wants(const MatchState& st) { return st.cand && (st.need_m || st.need_b); }
 
+// A hit as one word of the kernel's shared hit list (tm_kernels.cu
+// match_lane), where atomicMax keeps a position's longest: the length (6
+// bits, MAX_KEY_LEN) above the index (HIT_IDX_BITS, the widest index field:
+// the format's 24-bit ids, ops/tables.py ID_BITS; change both together).
+constexpr int32_t HIT_IDX_BITS = 24;
+
+TM_HD uint32_t match_hit(int32_t l, int32_t idx) {
+  return ((uint32_t)l << HIT_IDX_BITS) | (uint32_t)idx;
+}
+
+// The match word of hit word r, its length plus ``add`` (Mb's lil_off).
+TM_HD int32_t match_hit_word(uint32_t r, int32_t add) {
+  return (int32_t)(((r & ((1u << HIT_IDX_BITS) - 1u)) << 6) | ((r >> HIT_IDX_BITS) + (uint32_t)add));
+}
+
 // Probe the longest length left, its hash kept or hashed again.
 TM_HD void match_next(const MatchArgs& a, const MatchTables& tb, const uint32_t* win,
                       int32_t t, MatchState& st) {
@@ -721,32 +739,41 @@ TM_HD FollowLane follow_begin(const FollowArgs& a, int32_t lane) {
 }
 
 // A decision as one tile word: ctl bits 0-7 (delta, fd', has_tok), miss
-// at bit 8, the token word from bit 9.  has_del (ctl bit 8) is left out:
-// decide sets it exactly with fd', and follow_walk writes fd' for both.
-TM_HD uint32_t follow_pack(uint32_t ctl, uint32_t tok) {
-  return (ctl & 0xFFu) | (((ctl >> 9) & 1u) << 8) | (tok << 9);
+// at bit 8, the token word's S + 2 bits from bit 9.  has_del (ctl bit 8) is
+// left out: decide sets it exactly with fd', and follow_walk writes fd' for
+// both.  That is 9 + S + 2 bits: a u32 up to S = 21, a u64 above
+// (follow_wide), whose tiles take twice the shared memory.
+template <class W>
+TM_HD W follow_pack(uint32_t ctl, uint32_t tok) {
+  return (W)((ctl & 0xFFu) | (((ctl >> 9) & 1u) << 8)) | ((W)tok << 9);
 }
+
+TM_HD bool follow_wide(int32_t w3_shift) { return 9 + w3_shift + 2 > 32; }
+
+TM_HD int32_t follow_word_bytes(int32_t w3_shift) { return follow_wide(w3_shift) ? 8 : 4; }
 
 // The packed word of fd row ``row`` at window position ``k`` (clamped to
 // the window) of a lane starting at ``start``: zero past N.
-TM_HD uint32_t follow_word(const FollowArgs& a, int64_t start, int32_t row, int64_t k) {
+template <class W>
+TM_HD W follow_word(const FollowArgs& a, int64_t start, int32_t row, int64_t k) {
   const int64_t q = start + (k < a.W - 1 ? k : a.W - 1);
   if (q >= a.N) return 0u;
   const int64_t at = (int64_t)row * a.N + q;
-  return follow_pack((uint32_t)TM_LDG(a.ctl + at), (uint32_t)TM_LDG(a.tok + at));
+  return follow_pack<W>((uint32_t)TM_LDG(a.ctl + at), (uint32_t)TM_LDG(a.tok + at));
 }
 
 // Steps of one lane on a tile holding window positions [tb, tb + TW).
 // Returns true when the next step reads past the tile: refill it from
 // s.pos_rel and call again.  Returns false once the lane is done or t_rec
 // records are written; then follow_end writes the rest.
+template <class W>
 TM_HD bool follow_walk(const FollowArgs& a, int32_t lane, FollowLane& s,
-                       const uint32_t* tile, int32_t tb, int32_t TW) {
+                       const W* tile, int32_t tb, int32_t TW) {
   // rec = (pos << 4) | fd' | has_tok<<1 | has_del<<2 | miss<<3: the low
   // nibble is ctl bits 6..9 as they stand
   const int32_t rows = a.rows > 1 ? a.rows : 1;
   const uint32_t start = (uint32_t)s.start;
-  const uint32_t* at = tile - (int64_t)tb * rows;
+  const W* at = tile - (int64_t)tb * rows;
   int32_t t = s.t, pos = s.pos_rel, fd = s.fd;
   bool done = s.done;
   uint32_t* recs = a.recs + (int64_t)t * a.L + lane;
@@ -755,11 +782,12 @@ TM_HD bool follow_walk(const FollowArgs& a, int32_t lane, FollowLane& s,
   const uint32_t tok_mask = (1u << (a.w3_shift + 2)) - 1u;
   for (; !done && t < a.t_rec; ++t, recs += a.L, toks += a.L) {
     if (pos >= end) break;
-    const uint32_t w = at[pos * rows + fd];
-    pos += (int32_t)(w & 63u);
-    fd = (int32_t)((w >> 6) & 1u);
-    *recs = ((start + (uint32_t)pos) << 4) | ((w >> 6) & 3u) | ((uint32_t)fd << 2) | (((w >> 8) & 1u) << 3);
-    *toks = (w >> 9) & tok_mask;
+    const W w = at[pos * rows + fd];
+    const uint32_t lo = (uint32_t)w;
+    pos += (int32_t)(lo & 63u);
+    fd = (int32_t)((lo >> 6) & 1u);
+    *recs = ((start + (uint32_t)pos) << 4) | ((lo >> 6) & 3u) | ((uint32_t)fd << 2) | (((lo >> 8) & 1u) << 3);
+    *toks = (uint32_t)(w >> 9) & tok_mask;
     done = pos >= s.stop;
   }
   s.t = t;

@@ -606,8 +606,13 @@ int64_t tm_tokenize_parallel(void* vp, const uint8_t* data_in, int64_t n,
       const auto& a = recs[t];
       const auto& b = recs[t + 1];
       size_t ia = 0, ib = 0;
-      // advance ia to first record with pos >= J
+      // advance ia to first record with pos >= J, and to no record before
+      // the state the output has reached (start_rec - 1, the previous
+      // junction's shared state): where chains stay out of phase, thread
+      // t's scan runs on past J and an earlier junction may splice past
+      // J, and a splice behind that state would emit its span twice
       while (ia < a.size() && (int64_t)(a[ia] >> 4) < J) ia++;
+      if (start_rec > 0 && ia < start_rec - 1) ia = start_rec - 1;
       bool found = false;
       while (ia < a.size() && ib < b.size()) {
         uint64_t sa = a[ia] >> 4 << 1 | (a[ia] & 1);

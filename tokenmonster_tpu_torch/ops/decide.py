@@ -14,8 +14,9 @@ Outputs (the ``ops/decision.py`` contract):
 shape (N,) for a vocabulary without a delete token, else (2, N), row fd.
 S is the tables' ``w3_shift`` (``ops/tables.py::w3_shift``): 20 where the
 JAX package's Pallas engine serves the vocabulary, so the words are its
-words bit for bit, and 21 for vocabularies of 2^20 entries or more, which
-the JAX package tokenizes on its XLA decision engine.
+words bit for bit, and 21 to 24 for vocabularies of 2^20 entries or more
+(the fewest bits that hold every index and literal id), which the JAX
+package tokenizes on its XLA decision engine.
 
 One difference from the JAX kernel, which clamps every advance to at least
 one byte: at fd = 1 a branch to an alternative of length 1 (the virtual

@@ -5,17 +5,17 @@ the contract of ``ops/decision.py::follow_lanes(packed=True)``: lane l
 starts at (l * chunk, fd = 0) and follows the decisions (ctl, tok) of its
 current fd row through ``chunk + overlap`` bytes, one record per step:
   rec = (pos << 4) | fd' | has_tok<<1 | has_del<<2 | miss<<3
-  tok = the token word, its low S + 2 bits (S = ``w3_shift``; at 20 these
-        are the 22 bits the JAX kernel's packed word ``ctl | tok << 10``
-        keeps)
+  tok = the token word, its low S + 2 bits (S = ``w3_shift``, 20 to 24;
+        at 20 these are the 22 bits the JAX kernel's packed word
+        ``ctl | tok << 10`` keeps)
 has_del is written as fd': decide sets the two bits together.  Steps
 after a lane finishes are zero.  ``done_all`` is 1 iff every lane
 finished within ``t_rec`` steps (the stitch's record-window check).
 
 The kernel is ``follow_kernel`` in ``csrc/tm_kernels.cu``: each block
 copies the windows of a few lanes (``tmk::follow_pack(ctl, tok)`` of
-every fd row: ctl without has_del, and the token word, in one u32) into
-shared memory and one thread per lane walks its chain there, tile by
+every fd row: ctl without has_del, and the token word, in one u32 up to S
+= 21 and one u64 above) into shared memory and one thread per lane walks its chain there, tile by
 tile when a window exceeds the shared memory (per-lane steps
 ``tmk::follow_walk`` in ``csrc/tm_kernels.cuh``).  Any lane count works
 (the JAX kernel's 128..512 lanes in multiples of 128 is a TPU layout
@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .tables import W3_SHIFT
+from .tables import W3_SHIFT, check_w3_shift
 
 
 def window(chunk: int, overlap: int) -> int:
@@ -88,6 +88,7 @@ def follow(ctl: torch.Tensor, tok: torch.Tensor, n: int, chunk: int,
     if ctl.dim() not in (1, 2) or (ctl.dim() == 2 and ctl.shape[0] > 2):
         raise ValueError(f"ctl: shape {tuple(ctl.shape)}, expected (N,) "
                          "or (rows <= 2, N)")
+    check_w3_shift(w3_shift)
     if ctl.device.type == "cpu":
         return follow_plain(ctl, tok, n, chunk, n_lanes, overlap, t_rec,
                             w3_shift)

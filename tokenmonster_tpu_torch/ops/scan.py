@@ -14,14 +14,18 @@ A dispatch that overflows the fast record window retries once with the
 full window, which cannot overflow: it holds one record per scanned byte,
 two with a delete token (every record advances at least one byte, except
 a step from fd 1 to fd 0 in place, which only follows one that advanced).
-Two failures are
-forced by the data and send the text to the exact native host tokenizer:
-a missing byte in a vocabulary without an unk token (a kept record that
-emits nothing; the native tokenizer confirms the missing byte), and a
-junction whose lanes share no state within the overlap (chains that stay
-out of phase, as in long runs of one repeated unit).  Each is counted by
-cause in ``fallbacks`` and logged.  Any other failure is a kernel fault
-and raises.
+A junction whose lanes share no state within the overlap (chains that
+stay out of phase, as in long runs of one repeated unit, or long tokens
+of a large vocabulary) is repaired on the device (``run_repaired``, the
+trainer's repair too): the text's own chain is followed on from the last
+lane that holds it (``stitch.restart_point``) by one lane of its own,
+cut into columns that replace the lanes after it, and the text runs
+again; each repair lane spans twice the lanes of the one before.  One
+failure is forced by the data and sends the text to the exact native
+host tokenizer: a missing byte in a vocabulary without an unk token (a
+kept record that emits nothing; the native tokenizer confirms the
+missing byte), counted in ``fallbacks`` and logged.  Any other failure
+is a kernel fault and raises.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from . import _build
 from .decide import decide, resolve_device
 from .follow import follow
 from .match import match
-from .stitch import device_stitch_compact
+from .stitch import device_stitch_compact, restart_point
 from .tables import upload_tables
 
 OVERLAP_SCAN = 128  # bytes a lane scans past its chunk end to find sync
@@ -86,9 +90,10 @@ class GpuTokenizer:
 
     ``launches`` (per kernel, process-wide) and ``last_mode`` ("fast" or
     "full" record window, or "host" after a fallback) show which path the
-    last call took; ``fallbacks`` counts, by cause ("missing_byte",
-    "junction"), the texts the device path handed to the native tokenizer,
-    and ``host_fallbacks`` is their total.  ``hashmatch_tables`` (a numpy
+    last call took; ``fallbacks`` counts, by cause (only "missing_byte"
+    since junctions are repaired on the device), the texts the device path
+    handed to the native tokenizer, and ``host_fallbacks`` is their total;
+    ``repairs`` counts the junctions repaired on the device.  ``hashmatch_tables`` (a numpy
     match-table placement of ``vocab``, this package's or the JAX
     package's) shares one placement build; None builds it here."""
 
@@ -100,7 +105,8 @@ class GpuTokenizer:
         self.tables = upload_tables(vocab, hashmatch_tables, device=device,
                                     match_only=match_only)
         self.last_mode = None
-        self.fallbacks = {"missing_byte": 0, "junction": 0}
+        self.fallbacks = {"missing_byte": 0}
+        self.repairs = 0
 
     @property
     def launches(self) -> dict:
@@ -240,29 +246,140 @@ class GpuTokenizer:
         n_rec = int(((recs & 0xF) != 0).sum())
         return recs[:n_rec] & 0xFFFFFFFF, toks[:n_rec].astype(np.int64)
 
-    def tokenize_staged(self, staged, full: bool = False):
-        """Run the device pipeline on a staged text and download the ids.
-        Returns (ids u32, missing), or the cause when a dispatch did not
-        sync: "window" (a lane overflowed its record window), "junction"
-        (an owned junction found no shared state) or "missing_byte" (a kept
-        record emits nothing).  A fast-window overflow retries once on the
-        full window."""
+    def _repair_columns(self, tabs, data: bytes, off: int, g: int, at: int,
+                       k: int, t_rec: int):
+        """Columns of the text's chain from state (``at``, fd 0) for lanes
+        g+1 .. g+k of the dispatch at ``off``, positions in that dispatch:
+        lane g+1 gets the chain up to its own scan end, each later lane the
+        records past its start up to its scan end, as a lane's own scan
+        would reach: through the first record at or past that end.  So each
+        column's first record is a state of the lane before it, and the
+        splices hold.  {lane: (recs, toks)} int32 columns of ``t_rec``
+        rows, or None where a column holds more records than ``t_rec``."""
+        chunk = self.chunk
+        end = (g + k + 1) * chunk + OVERLAP_SCAN    # lane g+k's scan end
+        recs, toks = self.chain(tabs, data, off + at, end - at)
+        pos = (recs >> 4) + at
+        recs = (pos << 4) | (recs & 0xF)
+        cols = {}
+        for lane in range(g + 1, g + k + 1):
+            last = np.searchsorted(pos, (lane + 1) * chunk + OVERLAP_SCAN)
+            sel = np.arange(len(pos)) <= last
+            if lane > g + 1:
+                sel &= pos > lane * chunk
+            if sel.sum() > t_rec:
+                return None
+            col = np.zeros((2, t_rec), np.int64)
+            col[0, :sel.sum()], col[1, :sel.sum()] = recs[sel], toks[sel]
+            col = torch.from_numpy(col.astype(np.int32)).to(self.device)
+            cols[lane] = (col[0], col[1])
+        return cols
+
+    def run_recorded(self, staged, full: bool, tabs, epilogue,
+                     patches: dict):
+        """``_run_staged`` that also keeps each dispatch's record grid:
+        (outs, grids), grids per dispatch (recs, start0), what
+        ``restart_point`` reads where a junction did not hold."""
+        grids = []
+
+        def recording(recs, toks, buf, start0, last_lane, final):
+            grids.append((recs, start0))
+            return epilogue(recs, toks, buf, start0, last_lane, final)
+        return self._run_staged(staged, full, tabs, recording, patches), grids
+
+    def run_repaired(self, staged, data: bytes, tabs, epilogue, held, flags,
+                     grids):
+        """Run the whole text ``data`` (``staged``) again until every
+        dispatch holds: on the full record window where a lane overflowed,
+        with repair lanes where a junction's lanes share no state.
+        ``held(outs)``: per dispatch, whether every lane finished and
+        whether every junction held, a (dispatches, 2) bool array on the
+        host.  ``flags`` and ``grids``: ``held`` and the grids of a first
+        pass, run by ``run_recorded`` on the fast window with no patches,
+        that did not hold; the repair starts from them.  Returns (outs,
+        whether the full window was used, repairs made)."""
+        _n, L, bufs = staged
+        plan = self._plan(len(data))[1]
+        if len(plan) != len(bufs):
+            raise ValueError("run_repaired takes a whole text's staging")
+        full, patches, repairs, last = False, {}, 0, (-1, -1)
+        while True:
+            if not flags[:, 0].all():
+                if full:
+                    raise RuntimeError("a lane overflowed the full record "
+                                       "window, which holds every record a "
+                                       "lane can emit: a fault of the "
+                                       "decide or follow kernel")
+                full, patches, repairs, last = True, {}, 0, (-1, -1)
+            else:
+                d = int(np.nonzero(~flags[:, 1])[0][0])
+                last_lane, final = bufs[d][2], d == len(bufs) - 1
+                g, at, j = restart_point(*grids[d], last_lane, final)
+                if (d, j) <= last:
+                    raise RuntimeError(f"a repaired junction (dispatch {d}, "
+                                       f"lane {j}) did not hold: a fault of "
+                                       "the repair")
+                last = (d, j)
+                # the columns reach past junction j, so it holds after this
+                # repair
+                k = min((last_lane if final else L - 1) - g,
+                        max(1 << repairs, j + 1 - g))
+                cols = self._repair_columns(tabs, data, plan[d][0], g, at, k,
+                                            self._t_rec(full))
+                if cols is None:       # dense text: the full window holds it
+                    if full:
+                        raise RuntimeError("a repair column holds more "
+                                           "records than the full record "
+                                           "window")
+                    full, patches, repairs, last = True, {}, 0, (-1, -1)
+                else:
+                    for lane, (rec_col, tok_col) in cols.items():
+                        patches.setdefault(d, {})[lane] = (rec_col, tok_col)
+                        if lane == L - 1 and not final:
+                            # the bridge lane is the next dispatch's lane 0
+                            shift = (plan[d + 1][0] - plan[d][0]) << 4
+                            rec_col = torch.where(rec_col != 0,
+                                                  rec_col - shift, 0)
+                            patches.setdefault(d + 1, {})[0] = (rec_col,
+                                                                tok_col)
+                    repairs += 1
+            outs, grids = self.run_recorded(staged, full, tabs, epilogue,
+                                            patches)
+            flags = held(outs)
+            if flags.all():
+                return outs, full, repairs
+
+    def tokenize_staged(self, staged, data: bytes):
+        """Run the device pipeline on ``data`` staged (``stage(data)``) and
+        download the ids.  Returns (ids u32, missing), or "missing_byte"
+        where a kept record emits nothing.  A dispatch that did not hold
+        runs again through ``run_repaired``: on the full record window
+        where a lane overflowed, with junctions repaired (counted in
+        ``repairs``) where lanes share no state."""
         if self.tables.match_only:
             raise NotImplementedError(
                 "match-only tables (a trainer superset's) have no decide "
                 "tables: a tokenizer uploads the vocabulary's whole tables "
                 "(match_only=False)")
-        outs = self._run_staged(staged, full, self.tables, self._compact, {})
-        k = len(outs)
-        meta = torch.stack([torch.stack([o[j].long() for o in outs])
-                            for j in range(1, 6)]).cpu()
-        counts, missings, syncs, junctions, dones = meta.numpy()
-        if not dones.all():
-            if not full:
-                return self.tokenize_staged(staged, full=True)
-            return "window"
+
+        def meta_of(outs):
+            return torch.stack([torch.stack([o[j].long() for o in outs])
+                                for j in range(1, 6)]).cpu().numpy()
+
+        def held(outs):
+            return meta_of(outs)[[4, 3]].T != 0
+        outs, grids = self.run_recorded(staged, False, self.tables,
+                                        self._compact, {})
+        flags, full = held(outs), False
+        if not flags.all():
+            outs, full, repairs = self.run_repaired(
+                staged, data, self.tables, self._compact, held, flags, grids)
+            self.repairs += repairs
+        del grids
+        counts, missings, syncs, _junctions, _dones = meta_of(outs)
         if not syncs.all():
-            return "junction" if not junctions.all() else "missing_byte"
+            return "missing_byte"
+        k = len(outs)
         self.last_mode = "full" if full else "fast"
         words = torch.cat([outs[i][0][:int(counts[i])] for i in range(k)])
         ids = resolve_device(words, self.tables).cpu().numpy()
@@ -272,15 +389,11 @@ class GpuTokenizer:
         """Tokenize normalized+capcoded bytes; returns (ids u32, missing)."""
         if len(data) == 0 or self.vocab.max_token_length == 0:
             return np.zeros(0, np.uint32), 0
-        res = self.tokenize_staged(self.stage(data))
+        res = self.tokenize_staged(self.stage(data), data)
         if not isinstance(res, str):
             return res
-        if res == "window":
-            raise RuntimeError("a lane overflowed the full record window, "
-                               "which holds every record a lane can emit: "
-                               "a fault of the decide or follow kernel")
         ids, missing = NativeVocab(self.vocab).tokenize(bytes(data))
-        if res == "missing_byte" and (missing == 0 or self.tables.has_unk):
+        if missing == 0 or self.tables.has_unk:
             raise RuntimeError("a kept record emitted no token, but the text "
                                "has no byte the vocabulary lacks: a fault of "
                                "the decide or follow kernel")

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .tables import W3_SHIFT, del_bit
+from .tables import W3_SHIFT, check_w3_shift, del_bit
 
 _REC_FD, _REC_TOK, _REC_DEL, _REC_MISS = 1, 2, 4, 8
 _NO_STATE = 1 << 62   # above every (position, fd) state
@@ -172,6 +172,7 @@ def compact(recs: torch.Tensor, toks: torch.Tensor, s: torch.Tensor,
     delete marker above the token words' w3 bits.  The kernel writes
     every word of the output, the zeros too."""
     T, L = recs.shape
+    check_w3_shift(w3_shift)
     if recs.device.type == "cpu":
         return compact_plain(recs, toks, s, e, q, out_len, w3_shift)
     dev = recs.device

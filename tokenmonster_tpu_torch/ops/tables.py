@@ -25,8 +25,8 @@ import torch
 from torch import nn
 
 from ..core.tokenmeta import DOES_NOT_EXIST
-from .hashmatch import (IDX_BITS, SEED, ClassTable, HashMatchTables,
-                        build_hashmatch, compose_fields, disp_plane)
+from .hashmatch import (SEED, ClassTable, HashMatchTables, build_hashmatch,
+                        compose_fields, disp_plane)
 
 # Per-class descriptor layout: the D_* enum of csrc/tm_kernels.cuh.
 (D_LEN, D_S, D_BBITS, D_SALT, D_NF, D_FOFF, D_STRIDE, D_DOFF, D_NOVF,
@@ -36,17 +36,29 @@ MAX_SCALE = DESC_W - D_SCALE
 
 # Token words are idx | w3 << S (ops/decide.py).  Below MAX_ENTRIES
 # dictionary entries S is W3_SHIFT, the JAX package's Pallas words; from
-# there up to the hash placement's limit (``placement_limit``) S is
-# W3_SHIFT_WIDE, which holds every index the placement's fields hold.
+# there S is the fewest bits from W3_SHIFT_WIDE up to ID_BITS that hold
+# every dictionary index and the unk and delete ids (``w3_shift``).
+# ID_BITS, the format's 24-bit ids, is also the width of the kernels' index
+# fields, which hold idx+1 (``tmk::HIT_IDX_BITS`` in csrc/tm_kernels.cuh),
+# so a placement holds up to 2^24 - 2 entries (``placement_limit``): every
+# vocabulary of the format.
 MAX_ENTRIES = 1 << 20
 W3_SHIFT = 20
 W3_SHIFT_WIDE = 21
+ID_BITS = 24
 
 
 def del_bit(w3_shift: int) -> int:
     """The "delete token follows" marker of a compacted token word, above
     the word's two w3 bits."""
     return 1 << (w3_shift + 2)
+
+
+def check_w3_shift(w3_shift: int) -> None:
+    """Raise for an S that no table takes (``w3_shift``)."""
+    if not W3_SHIFT <= w3_shift <= ID_BITS:
+        raise ValueError(f"w3_shift {w3_shift} outside [{W3_SHIFT}, "
+                         f"{ID_BITS}]")
 
 # The match kernel's key filter: two bits per (key length, key hash), set
 # for every key of the placement, so a probe with either bit clear cannot
@@ -347,29 +359,31 @@ def w3_shift(vocab) -> int:
     """S of ``vocab``'s token words: W3_SHIFT where the JAX package's
     Pallas engine takes the vocabulary (fewer than MAX_ENTRIES entries,
     its unk and delete ids below MAX_ENTRIES:
-    ``tokenmonster_tpu/ops/scan.py:512-518``), else W3_SHIFT_WIDE."""
+    ``tokenmonster_tpu/ops/scan.py:512-518``), else the fewest bits from
+    W3_SHIFT_WIDE that hold every dictionary index and the unk and delete
+    ids (at most ID_BITS)."""
     literals = [int(t) & 0xFFFFFF for t in (vocab.unk_token,
                                             vocab.delete_token)
                 if t != DOES_NOT_EXIST]
-    narrow = (len(vocab.tokens) < MAX_ENTRIES
-              and all(t < MAX_ENTRIES for t in literals))
-    return W3_SHIFT if narrow else W3_SHIFT_WIDE
+    n = len(vocab.tokens)
+    if n < MAX_ENTRIES and all(t < MAX_ENTRIES for t in literals):
+        return W3_SHIFT
+    return max(W3_SHIFT_WIDE, max([n - 1, *literals]).bit_length())
 
 
 def placement_limit() -> int:
-    """The most dictionary entries a hash placement holds: its fields pack
-    idx+1 in IDX_BITS bits."""
-    return (1 << IDX_BITS) - 2
+    """The most dictionary entries a hash placement holds: the kernels'
+    index fields pack idx+1 in ID_BITS bits."""
+    return (1 << ID_BITS) - 2
 
 
 def check_placement(n: int) -> None:
     """Raise for a vocabulary of ``n`` entries that no placement holds."""
     if n > placement_limit():
         raise NotImplementedError(
-            f"{n} dictionary entries: the hash placement packs idx+1 in "
-            f"{IDX_BITS}-bit index fields, so it holds at most "
-            f"{placement_limit()} entries; larger vocabularies tokenize on "
-            "the host (ROADMAP.md §1 item 22)")
+            f"{n} dictionary entries: the kernels' index fields pack idx+1 "
+            f"in {ID_BITS} bits, so a hash placement holds at most "
+            f"{placement_limit()} entries")
 
 
 def meta_width(n: int) -> int:
@@ -393,7 +407,7 @@ def _vocab_config(tabs, vocab, literals: bool = True) -> None:
                 and tok >= 1 << tabs.w3_shift):
             raise NotImplementedError(
                 f"{name} id {tok} does not fit the {tabs.w3_shift}-bit "
-                "literal field (ROADMAP.md §1 item 22)")
+                "literal field of the token words")
     if tabs.has_space != tabs.has_delete:
         raise ValueError("hash tables carry the space-stripped entries "
                          "iff the vocabulary has a delete token")
@@ -415,8 +429,8 @@ class DeviceTables(nn.Module):
 
     ``match_only`` (a trainer superset) carries the match tables only:
     ``meta``, ``entries``, ``bb`` and ``ids3`` are None, and its
-    candidates bring their own at candidate size.  The indices must fit
-    the placement's index fields (IDX_BITS bits of idx+1), or the
+    candidates bring their own at candidate size.  The placement's index
+    fields (idx+1) must fit the kernels' ID_BITS bits, or the
     constructor raises."""
 
     def __init__(self, vocab, tables, match_only: bool = False):
@@ -429,10 +443,10 @@ class DeviceTables(nn.Module):
         n_cls = len(tables.classes)
         self.idx1_bits = tables.classes[0].idx1_bits if n_cls else 21
         check_placement(n)
-        if self.idx1_bits > IDX_BITS:
+        if self.idx1_bits > ID_BITS:
             raise NotImplementedError(
                 f"the placement packs idx+1 in {self.idx1_bits} bits, wider "
-                f"than the kernels' {IDX_BITS}-bit index fields")
+                f"than the kernels' {ID_BITS}-bit index fields")
         self.w3_shift = w3_shift(vocab)
         flat = flat_tables(tables)
         desc, len_cls, fields, disp, ovf = class_descriptors(tables, flat)

@@ -15,13 +15,13 @@ once per candidate.  Missing bytes are scored on the device.
 A strip that overflows the fast record window is scored again on the full
 window; a full-window overflow is a kernel fault and raises.  A junction
 whose lanes share no state (chains that stay out of phase past the
-overlap, as in long runs of one repeated unit) is repaired on the device,
-where the JAX package sends the strip to the native scorer: the text's
-own chain is followed on from the last lane that holds it
-(``stitch.restart_point``) by one lane of its own, which is cut into
-columns that replace the lanes after it, and the strip is scored again.
-Each repair lane spans twice the lanes of the one before, so a run of m
-failed junctions takes about log2(m) repairs.
+overlap, as in long runs of one repeated unit) is repaired on the device
+(``GpuTokenizer.run_repaired``), where the JAX package sends the strip to
+the native scorer: the text's own chain is followed on from the last lane
+that holds it (``stitch.restart_point``) by one lane of its own, which is
+cut into columns that replace the lanes after it, and the strip is scored
+again.  Each repair lane spans twice the lanes of the one before, so a
+run of m failed junctions takes about log2(m) repairs.
 
 Several scoring slots (``score_slots``; the JAX package's ``shard_map``
 over a mesh and ``psum``) split a candidate's strips: whole strips in the
@@ -44,8 +44,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..ops.scan import OVERLAP_SCAN, GpuTokenizer
-from ..ops.stitch import device_stitch_score, restart_point
+from ..ops.scan import GpuTokenizer
+from ..ops.stitch import device_stitch_score
 from ..ops.tables import CandidateTables
 from . import multihost
 
@@ -71,16 +71,10 @@ def score_epilogue(tabs: CandidateTables, n_ids: int, chunk: int):
     return epilogue
 
 
-def _score_staged(tk: GpuTokenizer, staged, tabs, epilogue, full: bool,
-                  patches: dict):
-    """Enqueue one staged strip: (scores, n_tokens, miss_mask, flags) as
-    device tensors, the first three summed over its dispatches, flags
-    (dispatches, 2) their (done, sync)."""
-    return _sum_outs(tk._run_staged(staged, full, tabs, epilogue, patches))
-
-
 def _sum_outs(outs):
-    """``_score_staged``'s sums and flags of the dispatches ``outs``."""
+    """The sums of a strip's dispatches ``outs``, as device tensors:
+    (scores, n_tokens, miss_mask, flags), flags (dispatches, 2) their
+    (done, sync)."""
     scores = torch.stack([o[0] for o in outs]).sum(0)
     n_tok = torch.stack([o[1] for o in outs]).sum()
     miss_mask = torch.stack([o[2] for o in outs]).sum(0)
@@ -88,89 +82,18 @@ def _sum_outs(outs):
     return scores, n_tok, miss_mask, flags
 
 
-def _repair_columns(tk: GpuTokenizer, tabs, data: bytes, off: int, g: int,
-                    at: int, k: int, t_rec: int):
-    """Columns of the text's chain from state (``at``, fd 0) for lanes
-    g+1 .. g+k of the dispatch at ``off``, positions in that dispatch:
-    lane g+1 gets the chain up to its own scan end, each later lane the
-    records past its start up to its scan end, as a lane's own scan would
-    reach: through the first record at or past that end.  So each column's
-    first record is a state of the lane before it, and the splices hold.
-    {lane: (recs, toks)} int32 columns of ``t_rec`` rows, or None where a
-    column holds more records than ``t_rec``."""
-    chunk = tk.chunk
-    end = (g + k + 1) * chunk + OVERLAP_SCAN    # lane g+k's scan end
-    recs, toks = tk.chain(tabs, data, off + at, end - at)
-    pos = (recs >> 4) + at
-    recs = (pos << 4) | (recs & 0xF)
-    cols = {}
-    for lane in range(g + 1, g + k + 1):
-        last = np.searchsorted(pos, (lane + 1) * chunk + OVERLAP_SCAN)
-        sel = np.arange(len(pos)) <= last
-        if lane > g + 1:
-            sel &= pos > lane * chunk
-        if sel.sum() > t_rec:
-            return None
-        col = np.zeros((2, t_rec), np.int64)
-        col[0, :sel.sum()], col[1, :sel.sum()] = recs[sel], toks[sel]
-        col = torch.from_numpy(col.astype(np.int32)).to(tk.device)
-        cols[lane] = (col[0], col[1])
-    return cols
-
-
-def _repair(tk: GpuTokenizer, staged, data: bytes, tabs, epilogue,
-            full: bool):
-    """Score one strip whose first pass did not hold: on the full window
-    where a lane overflowed, with repair lanes where a splice did not hold.
-    Returns (scores, n_tokens, miss_mask) as numpy and the repairs made."""
-    _n, L, bufs = staged
-    plan = tk._plan(len(data))[1]
-    patches, repairs, last = {}, 0, (-1, -1)
-    while True:
-        grids = []                 # each dispatch's (recs, start0)
-
-        def recording(recs, toks, buf, start0, last_lane, final):
-            grids.append((recs, start0))
-            return epilogue(recs, toks, buf, start0, last_lane, final)
-        s, nt, mm, flags = _score_staged(tk, staged, tabs, recording, full,
-                                         patches)
-        flags = flags.cpu().numpy()
-        if not flags[:, 0].all():
-            if full:
-                raise RuntimeError("a lane overflowed the full record "
-                                   "window, which holds every record a "
-                                   "lane can emit: a fault of the decide "
-                                   "or follow kernel")
-            full, patches, repairs, last = True, {}, 0, (-1, -1)
-            continue
-        if flags[:, 1].all():
-            return s.cpu().numpy(), int(nt), mm.cpu().numpy(), repairs
-        d = int(np.nonzero(~flags[:, 1])[0][0])
-        last_lane, final = bufs[d][2], d == len(bufs) - 1
-        g, at, j = restart_point(*grids[d], last_lane, final)
-        if (d, j) <= last:
-            raise RuntimeError(f"a repaired junction (dispatch {d}, lane {j})"
-                               " did not hold: a fault of the repair")
-        last = (d, j)
-        # the columns reach past junction j, so it holds after this repair
-        k = min((last_lane if final else L - 1) - g,
-                max(1 << repairs, j + 1 - g))
-        cols = _repair_columns(tk, tabs, data, plan[d][0], g, at, k,
-                               tk._t_rec(full))
-        if cols is None:           # dense text: the full window holds it
-            if full:
-                raise RuntimeError("a repair column holds more records than "
-                                   "the full record window")
-            full, patches, repairs, last = True, {}, 0, (-1, -1)
-            continue
-        for lane, (rec_col, tok_col) in cols.items():
-            patches.setdefault(d, {})[lane] = (rec_col, tok_col)
-            if lane == L - 1 and not final:
-                # the bridge lane is the next dispatch's lane 0
-                shift = (plan[d + 1][0] - plan[d][0]) << 4
-                rec_col = torch.where(rec_col != 0, rec_col - shift, 0)
-                patches.setdefault(d + 1, {})[0] = (rec_col, tok_col)
-        repairs += 1
+def _repair(tk: GpuTokenizer, staged, data: bytes, tabs, epilogue, flags,
+            grids):
+    """Score one strip whose first pass (fast window, ``flags`` and
+    ``grids`` as ``GpuTokenizer.run_recorded`` gave them) did not hold,
+    through ``GpuTokenizer.run_repaired``: on the full window where a lane
+    overflowed, with repair lanes where a splice did not hold.  Returns
+    (scores, n_tokens, miss_mask) as numpy and the repairs made."""
+    outs, _full, repairs = tk.run_repaired(
+        staged, data, tabs, epilogue,
+        lambda outs: _sum_outs(outs)[3].cpu().numpy(), flags, grids)
+    s, nt, mm, _flags = _sum_outs(outs)
+    return s.cpu().numpy(), int(nt), mm.cpu().numpy(), repairs
 
 
 def score_strips(tk: GpuTokenizer, tabs: CandidateTables, datasets,
@@ -190,13 +113,13 @@ def score_strips(tk: GpuTokenizer, tabs: CandidateTables, datasets,
         if len(data) == 0:
             continue
         staged = tk.stage(data)
-        s, nt, mm, flags = _score_staged(tk, staged, tabs, epilogue, False,
-                                         {})
+        outs, grids = tk.run_recorded(staged, False, tabs, epilogue, {})
+        s, nt, mm, flags = _sum_outs(outs)
         ok = flags.all()
         acc_s += torch.where(ok, s, 0)
         acc_t += torch.where(ok, nt, 0)
         acc_m += torch.where(ok, mm, 0)
-        strips.append((data, staged))
+        strips.append((data, staged, flags, grids))
         all_flags.append(flags.all(0))
     if not strips:
         return np.zeros(n_ids, np.int64), 0, np.zeros(256, np.int64), 0
@@ -205,11 +128,12 @@ def score_strips(tk: GpuTokenizer, tabs: CandidateTables, datasets,
     scores, n_tokens = host[:n_ids].copy(), int(host[n_ids])
     miss_mask = host[n_ids + 1:n_ids + 257].copy()
     repairs = 0
-    for (data, staged), (done, sync) in zip(strips,
-                                            host[n_ids + 257:].reshape(-1, 2)):
+    for (data, staged, flags, grids), (done, sync) in zip(
+            strips, host[n_ids + 257:].reshape(-1, 2)):
         if done and sync:
             continue
-        s, nt, mm, r = _repair(tk, staged, data, tabs, epilogue, not done)
+        s, nt, mm, r = _repair(tk, staged, data, tabs, epilogue,
+                               flags.cpu().numpy(), grids)
         scores += s
         n_tokens += nt
         miss_mask += mm
@@ -265,8 +189,8 @@ def plan_pieces(n_dispatches: list, n_slots: int) -> list:
 
 def _score_piece(tk: GpuTokenizer, tabs, epilogue, data: bytes, first: int,
                  stop: int):
-    """Enqueue dispatches [first, stop) of a strip: ``_score_staged``'s
-    sums and flags.  Where ``first`` > 0 the dispatch before it runs too,
+    """Enqueue dispatches [first, stop) of a strip: ``_sum_outs`` of
+    them.  Where ``first`` > 0 the dispatch before it runs too,
     unscored, for the record skip it hands on."""
     warm = 1 if first > 0 else 0
     staged = tk.stage(data, first - warm, stop)

@@ -214,8 +214,9 @@ class GpuCandidateScorer(CandidateScorer):
         builds it here.  The superset is armed in REMAP mode: its match
         tables only, masked per candidate, each match word mapped to the
         candidate's index, and decide, follow and ids on candidate-sized
-        tables, so token words' 20-bit indices hold supersets of 2^20
-        entries or more too."""
+        tables, so candidates keep 20-bit token words (S = 20) over a
+        superset of any size the placement holds: up to 2^24 - 2 entries,
+        whose index fields take up to 24 bits."""
         v_sup = self.build(list(superset_tokens))
         if hashmatch_tables is None:
             hashmatch_tables = build_hashmatch(

@@ -4,6 +4,7 @@
     python3 tools/measure/previous_kernels.py extract
     python3 tools/measure/previous_kernels.py time [KERNEL ...]
     python3 tools/measure/previous_kernels.py paths
+    python3 tools/measure/previous_kernels.py parent [KERNEL ...]
 
 ``extract``, in a git checkout, writes the kernel sources of
 ``tokenmonster_tpu_torch/csrc/`` at the commits of ``PREVIOUS`` to
@@ -46,6 +47,13 @@ synchronise: medians, and the median of the paired differences.  Each
 tree also runs ``ROUND_RUNS`` seeded two-round ``train_vocab`` runs on the
 smoke's trainer configuration: seconds per round after the arm.
 
+``parent``, on a CUDA card, times each kernel of this tree against the
+same kernel of the ``PARENT`` tree (imported beside it as ``paths`` does,
+its kernels built from its own sources), both through their wrappers on
+the same inputs and tables: ``chip_smoke.py``'s main-path dispatch, in
+turns (current, parent, parent, current), each checked against the plain
+version first (tolerance 0).
+
 Each prints the card's name and power limit, and as its last line one JSON
 object of the times.  The previous designs' argument structs are copied
 below as they were at those commits, so the current ones may change freely.
@@ -67,7 +75,8 @@ OUT = os.path.join(ROOT, "build", "previous_kernels")
 SOURCES = ("tm_kernels.cu", "tm_kernels.cuh")
 PREVIOUS = {"match": "8033868", "decide": "f9d4c8f", "follow": "8033868",
             "compact": "f9d4c8f"}
-PARENT = "f35d910"            # the tree ``paths`` compares with
+PARENT = "7fbc364"            # the tree ``paths`` and ``parent`` compare
+                              # with
 PARENT_FILES = ("tokenmonster_tpu_torch",)
 CHAIN_RUNS, E2E_RUNS, CANDIDATES, ROUND_RUNS = 60, 12, 24, 2
 
@@ -407,7 +416,7 @@ class _Tree:
         self.norm = core.normalize(raw)
         self.native = sub("native").NativeVocab(core)
         self.staged = self.tk.stage(self.norm)
-        self.tk.tokenize_staged(self.staged)
+        self.chain()
 
         self.port = port = sub("train.trainvocab")
         dic = sub("train.getalltokens").load_tokens_file(tok_path)
@@ -584,6 +593,68 @@ def time_paths() -> int:
     return 0
 
 
+def time_parent(names: list[str]) -> int:
+    import importlib
+
+    import torch
+    if not torch.cuda.is_available():
+        print("previous_kernels: torch sees no CUDA card", file=sys.stderr)
+        return 1
+    parent = os.path.join(OUT, PARENT, "tree")
+    if not os.path.exists(os.path.join(parent, "tokenmonster_tpu_torch")):
+        raise FileNotFoundError(f"no tree in {parent}; run 'extract' in a "
+                                "git checkout first")
+    sys.path.insert(0, ROOT)
+    import chip_smoke as smoke
+    from tokenmonster_tpu_torch.core.vocab import Vocab
+    from tokenmonster_tpu_torch.corpus import main_dispatch, stdlib_text
+    from tokenmonster_tpu_torch.ops import stitch
+    from tokenmonster_tpu_torch.ops.decide import decide, decide_plain
+    from tokenmonster_tpu_torch.ops.follow import follow, follow_plain
+    from tokenmonster_tpu_torch.ops.match import match, match_plain
+    from tokenmonster_tpu_torch.ops.scan import OVERLAP_SCAN
+    _import_tree("tm_parent", parent)
+    par = {k: importlib.import_module(f"tm_parent.ops.{k}")
+           for k in ("match", "decide", "follow", "stitch")}
+
+    card = _card()
+    print(card)
+    dev = torch.device("cuda", 0)
+    core = Vocab.load(os.path.join(ROOT, smoke.VOCAB))
+    raw, _dropped = stdlib_text(core, smoke.MAIN_BYTES)
+    tk, buf, n = main_dispatch(core, raw, dev, smoke.CHUNK, smoke.LANES)
+    tabs, lanes, t_rec = tk.tables, smoke.LANES, tk._t_rec(False)
+    S = tabs.w3_shift
+    m, mb = match(buf, n, tabs)
+    ctl, tok = decide(m, mb, buf, n, tabs)
+    args = (ctl, tok, n, smoke.CHUNK, lanes, OVERLAP_SCAN, t_rec, S)
+    recs, toks, _done = follow(*args)
+    _f, keep, _sn, ok, s, e = stitch.stitched_keep(recs, 0, lanes - 2, False)
+    smoke.require(bool(ok), "the dispatch did not sync")
+    counts = keep.sum(0)
+    q = (counts.cumsum(0) - counts - s).int()
+    cargs = (recs, toks, s.int(), e.clamp(max=t_rec - 1).int(), q,
+             t_rec * lanes, S)
+    calls = {
+        "match": (lambda: match(buf, n, tabs),
+                  lambda: par["match"].match(buf, n, tabs),
+                  lambda: match_plain(buf, n, tabs)),
+        "decide": (lambda: decide(m, mb, buf, n, tabs),
+                   lambda: par["decide"].decide(m, mb, buf, n, tabs),
+                   lambda: decide_plain(m, mb, buf, n, tabs)),
+        "follow": (lambda: follow(*args), lambda: par["follow"].follow(*args),
+                   lambda: follow_plain(*args)),
+        "compact": (lambda: stitch.compact(*cargs),
+                    lambda: par["stitch"].compact(*cargs),
+                    lambda: stitch.compact_plain(*cargs)),
+    }
+    result = {"card": card, "parent": PARENT, "shapes": {"main": measure(
+        smoke, {k: v for k, v in calls.items() if k in names}, "main",
+        card)}}
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[1] == "extract":
         return extract()
@@ -591,6 +662,9 @@ def main(argv: list[str]) -> int:
         return time_paths()
     if len(argv) >= 2 and argv[1] == "time" and set(argv[2:]) <= set(PREVIOUS):
         return time_designs(argv[2:] or list(PREVIOUS))
+    if (len(argv) >= 2 and argv[1] == "parent"
+            and set(argv[2:]) <= set(PREVIOUS)):
+        return time_parent(argv[2:] or list(PREVIOUS))
     print(__doc__, file=sys.stderr)
     return 2
 
