@@ -22,10 +22,14 @@ versions, ``GpuCandidateScorer.score`` against the native scorer on the
 whole text, the junction repair on a forced run, and two seeded rounds
 of the port's ``train_vocab`` on the card against its native backend
 (every scored candidate, the deletions of each round, the files
-written), with times.  Then getalltokens of that configuration with
-``TM_GAT_DEVICE=1`` (the window sort on the card; the ``.tok`` byte for
-byte the host sort's; each micro-chunk's sort timed against the native
-sort in turns), and the same two rounds with the scorer over two slots of
+written), with times.  Then the cell's next candidate on its own tables
+(a placement of its own, full tables): scored by a scorer never
+prepared, and with a token the superset lacks and with an unk token by
+the prepared one, on one slot and on two, against native and REMAP mode,
+with its kernels against their plain versions.  Then getalltokens of
+that configuration with ``TM_GAT_DEVICE=1`` (the window sort on the card;
+the ``.tok`` byte for byte the host sort's; each micro-chunk's sort timed
+against the native sort in turns), and the same two rounds with the scorer over two slots of
 the card and as two gloo processes on it (rounds, files and every
 candidate's scores equal; every trainer kernel launched in each
 process).  The reference-scale phase does the same as the trainer phase,
@@ -33,10 +37,12 @@ for one round, on a pool whose superset holds more than 2^20 entries;
 then that superset vocabulary tokenizes the whole text with the wide
 token word (S = 21) through ``GpuTokenizer`` and through ``load(...)`` of
 its saved ``.vocab`` ("device" and "auto" routes), against native, each
-kernel against its plain version at S = 21, with times.  Then the same
-for a pool of the same text, counted once with it, whose superset holds
-2^21 - 1 entries or more: 22-bit placement index fields, token words at S
-= 22 (follow's u64 tile word timed against the u32 word).  The pipeline
+kernel against its plain version at S = 21, with times, and the
+vocabulary scored as a trainer candidate on its tokenizer's tables
+against ``tm_tokenize_score``.  Then the same for a pool of the same
+text, counted once with it, whose superset holds 2^21 - 1 entries or
+more: 22-bit placement index fields, token words at S = 22 (follow's u64
+tile word timed against the u32 word).  The pipeline
 phase runs
 getalltokens, trainvocab (cuda against native) and exportvocab from the
 shell, then serves the exported vocabulary through ``load(...,
@@ -639,7 +645,9 @@ def trainer_phase(dev, card: str, work: str):
     files = _dir_bytes(res_cuda)
     check(files and files == _dir_bytes(res_native),
           f"results differ from native's: {sorted(files)}")
-    check(len(scorers) == 1, f"{len(scorers)} scorers armed")
+    check(len(scorers) == 1 and scorers[0].own_table_scores == 0,
+          f"{len(scorers)} scorers armed, or a candidate of the loop left "
+          "REMAP mode")
     for cand, datasets, (got_s, got_t, got_miss) in scored:
         want_s, want_t, want_m = native_score(cand, datasets)
         check(np.array_equal(got_s, want_s) and got_t == want_t
@@ -661,7 +669,7 @@ def trainer_phase(dev, card: str, work: str):
         raw=t.raw, text=t.text, tok_path=t.tok_path, gat_s=t.gat_s,
         rounds_native=rounds_native, files_native=_dir_bytes(res_native),
         round_s=(cuda_s - arm) / TRAIN_ROUNDS,
-        scored={_cand_key(c): r for c, _d, r in scored})
+        scored={_cand_key(c): r for c, _d, r in scored}, inputs=t)
 
     out = {}
     for name in TRAIN_KERNELS:
@@ -713,6 +721,187 @@ def trainer_phase(dev, card: str, work: str):
           f"{smem_plan(t.buf, t.n, tabs, LANES, tk.chunk, t.t_rec)}")
     require(not failed, f"trainer phase: {len(failed)} checks failed")
     return out, shared
+
+def own_tables_phase(dev, card: str, t) -> dict:
+    """The trainer's scorer on candidates' own tables, at the 8 MiB cell
+    (``trainer_inputs`` ``t``, whose scorer holds the superset in REMAP
+    mode): the next seeded 32,000-id candidate scored by a scorer never
+    prepared; that candidate with a token the superset lacks, and with the
+    unk token (the superset has none), by the prepared scorer; then all
+    three over two slots of the card (a fresh scorer, and one prepared on
+    the same superset placement).  Each on the whole text against
+    ``tm_tokenize_score``, the first also against the prepared scorer's
+    REMAP result, the two slots against one; times of each case's
+    placement, upload and device score beside REMAP's masking and score;
+    the launches of all that; then match, decide and follow on the
+    candidate's own tables against their plain versions, and their times.
+    Returns, per kernel, its numbers keyed ``own_*``."""
+    from unittest import mock
+
+    from tokenmonster_tpu_torch.ops import _build
+    from tokenmonster_tpu_torch.ops.scan import MARGIN, GpuTokenizer
+    from tokenmonster_tpu_torch.parallel.score import score_strips
+    from tokenmonster_tpu_torch.train import trainvocab as port
+    from tokenmonster_tpu_torch.train.score_helpers import \
+        candidate_runtime_state
+
+    sc, text = t.sc, t.text
+    sup = sc._sup
+    cand = t.candidate()
+    toks = [bytes(x) for x in cand.tokens]
+    require(sc.build(toks).tokens == cand.tokens,
+            "the candidate does not rebuild from its tokens")
+    absent = b"qqzxjqqzxj"
+    require(absent not in sup.index, "the absent token is in the superset")
+    lacking = sc.build(toks + [absent])
+    with_unk = sc.build(toks)
+    require(with_unk.enable_unk_token(), "no unk token enabled")
+
+    timed = {}
+    real_build, real_strips, real_slots = (port.build_hashmatch,
+                                           port.score_strips,
+                                           port.score_slots)
+    own_tks = []
+
+    def placement(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_build(*args, **kw)
+        timed["placement_s"] = time.perf_counter() - t0
+        return out
+
+    class Upload(GpuTokenizer):
+        def __init__(self, *args, **kw):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kw)
+            torch.cuda.synchronize(self.device)
+            if not self.tables.match_only:
+                timed.setdefault("upload_s", []).append(
+                    time.perf_counter() - t0)
+                own_tks.append(self)
+
+    def strips_on_events(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_strips(*args)
+        end.record()
+        end.synchronize()
+        timed["score_ms"] = start.elapsed_time(end)
+        return out
+
+    def slots_on_host(*args):
+        t0 = time.perf_counter()
+        out = real_slots(*args)
+        timed["score_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def native_score(c):
+        return port.CandidateScorer(c.charset, c.using_capcode,
+                                    c.normalizer.flag).score(c, [text])
+
+    def scorer(devices):
+        out = port.GpuCandidateScorer(cand.charset, cand.using_capcode,
+                                      cand.normalizer.flag, device=devices)
+        out.set_specials([])
+        return out
+
+    def held(got, want, what: str) -> None:
+        require(np.array_equal(got[0], want[0]) and got[1:] == want[1:],
+                f"{what}: scores, token count or missing set differ")
+
+    def scored(scorer_, c, what: str):
+        timed.clear()
+        own, repairs = scorer_.own_table_scores, scorer_.repairs
+        got = scorer_.score(c, [text])
+        require(scorer_.own_table_scores == own + 1,
+                f"{what}: not scored on its own tables")
+        where = ("CUDA events" if scorer_._slots is None
+                 else "host clock, two threads, the slots' uploads")
+        print(f"{what}: {len(c.tokens)} entries, S = "
+              f"{own_tks[-1].tables.w3_shift}; placement "
+              f"{timed['placement_s']:.3f} s, upload "
+              f"{sum(timed['upload_s']):.3f} s ({len(timed['upload_s'])} "
+              f"slot(s)), device score {timed['score_ms']:.3f} ms ({where},"
+              f" read-back included); {got[1]} tokens, missing "
+              f"{sorted(got[2])}; own_table_scores "
+              f"{scorer_.own_table_scores}, repairs "
+              f"{scorer_.repairs - repairs} [{card}]")
+        return got
+
+    fresh = scorer(dev)
+    cases = (("unprepared", fresh, cand), ("superset lacks a token", sc,
+                                           lacking),
+             ("unk id the superset lacks", sc, with_unk))
+    one = {}
+    t0_phase = time.perf_counter()
+    _build.reset_launches()
+    with mock.patch.object(port, "build_hashmatch", placement), \
+            mock.patch.object(port, "GpuTokenizer", Upload), \
+            mock.patch.object(port, "score_strips", strips_on_events), \
+            mock.patch.object(port, "score_slots", slots_on_host):
+        for what, scorer_, c in cases:
+            one[what] = scored(scorer_, c, what)
+            held(one[what], native_score(c), f"{what} against native")
+        # the same candidate in REMAP mode, for comparison
+        t0 = time.perf_counter()
+        tabs = candidate_runtime_state(sup, cand)
+        torch.cuda.synchronize()
+        mask_ms = (time.perf_counter() - t0) * 1e3
+        timed.clear()
+        remap = strips_on_events(sup.tokenizer, tabs, [text],
+                                 len(cand.reverse))
+        held((remap[0], remap[1],
+              {int(b) for b in np.nonzero(remap[2])[0]}),
+             one["unprepared"], "REMAP against own tables")
+        print(f"the same candidate in REMAP mode: host masking "
+              f"{mask_ms:.3f} ms (upload included), device score "
+              f"{timed['score_ms']:.3f} ms (CUDA events, read-back "
+              f"included); equal to its own tables' [{card}]")
+        fresh2 = scorer([dev, dev])
+        prep2 = scorer([dev, dev])
+        prep2.prepare(port.superset_pool(t.tok_path),
+                      hashmatch_tables=sup.hashmatch)
+        for (what, _s, c), two in zip(cases, (fresh2, prep2, prep2)):
+            got = scored(two, c, f"two slots, {what}")
+            held(got, one[what], f"two slots, {what}, against one slot")
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    phase_s = time.perf_counter() - t0_phase
+    require(all(launches[k] > 0 for k in TRAIN_KERNELS),
+            f"an own-tables kernel was not launched: {launches}")
+    print(f"own tables: {len(cases)} candidates on one slot and on two, "
+          f"equal to native (and the first to REMAP), in {phase_s:.1f} s; "
+          f"launches {launches} [{card}]")
+
+    tk = own_tks[0]
+    _n, lanes, bufs = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
+    require(lanes == LANES, f"{lanes} lanes staged")
+    N, pairs, work_of, plan = dispatch_pairs(tk, bufs[0][0], bufs[0][1],
+                                             True)
+    out = {}
+    for name in TRAIN_KERNELS:
+        err = compare(pairs, name)
+        require(err == 0, f"{name} on own tables: max_abs_err {err}")
+        kernel, plain = pairs[name]
+        b_ms, b_by = bound(*work_of[name])
+        ms = cuda_ms(kernel)
+        device_ms = cuda_ms(kernel, queued=True)
+        plain_ms = cuda_ms(plain, calls=1, repeat=3)
+        out[name] = {"own_launches": launches[name], "own_max_abs_err": err,
+                     "own_ms": ms, "own_device_ms": device_ms,
+                     "own_plain_ms": plain_ms, "own_bound_ms": b_ms,
+                     "own_bound_by": b_by, "own_roofline_share": b_ms / ms,
+                     "own_device_roofline_share": b_ms / device_ms}
+        print(f"{name}: own tables of {len(cand.tokens)} entries kernel "
+              f"{ms:.4f} ms from the host ({device_ms:.4f} on the card "
+              f"alone), plain {plain_ms:.4f} ms, max_abs_err {err}, bound "
+              f"{b_ms:.4f} ms ({b_by}, {work_of[name][0]} B, "
+              f"{work_of[name][1]} ops), roofline {100 * b_ms / ms:.2f}% "
+              f"({100 * b_ms / device_ms:.2f}% of the card alone) "
+              f"(N={N}, {LANES} lanes) [{card}]")
+    print(f"shared memory on own tables: {plan}")
+    return out
+
 
 def sort_phase(dev, card: str, shared) -> dict:
     """getalltokens of the trainer phase's configuration with
@@ -1125,6 +1314,37 @@ def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
           f"{api_tk.repairs} (load(), both calls); launches {launches} "
           f"[{card}]")
 
+    # the vocabulary as a trainer candidate on the tables its tokenizer
+    # holds: the own-tables scorer's path, at S = shift
+    from tokenmonster_tpu_torch.parallel.score import score_strips
+    n_ids = len(v.reverse)
+    _build.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got_s, got_t, got_m, repairs = score_strips(wtk, tabs, [text], n_ids)
+    end.record()
+    end.synchronize()
+    own_launches = dict(_build.launches)
+    t0 = time.perf_counter()
+    want_s = np.zeros(n_ids + 1, np.int64)
+    want_m = np.zeros(256, np.uint8)
+    want_t, _n_miss = nv.tokenize_score(text, want_s, want_m)
+    native_score_s = time.perf_counter() - t0
+    require(np.array_equal(got_s, want_s[:n_ids]) and got_t == want_t
+            and np.array_equal(got_m != 0, want_m != 0),
+            f"{key} vocabulary as a candidate on its own tables: scores "
+            "differ from native")
+    require(all(own_launches[k] > 0 for k in TRAIN_KERNELS),
+            f"a kernel was not launched scoring on own tables: "
+            f"{own_launches}")
+    print(f"{key} vocabulary scored as a candidate on its tokenizer's "
+          f"tables (S = {tabs.w3_shift}): {got_t} tokens, missing "
+          f"{np.nonzero(got_m)[0].tolist()}, equal to native; device score "
+          f"{start.elapsed_time(end):.3f} ms (CUDA events, read-back "
+          f"included), native {native_score_s:.3f} s; junction repairs "
+          f"{repairs}; launches {own_launches} [{card}]")
+
     _n, lanes, bufs = wtk.stage(text[:(LANES - 1) * wtk.chunk + MARGIN])
     require(lanes == LANES, f"{lanes} lanes staged")
     N, pairs, work_of, plan = dispatch_pairs(wtk, bufs[0][0], bufs[0][1],
@@ -1142,6 +1362,7 @@ def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
         device_ms = cuda_ms(kernel, queued=True)
         plain_ms = cuda_ms(plain, calls=1, repeat=3)
         out[name] = {f"{key}_launches": launches[name],
+                     f"{key}_own_launches": own_launches.get(name, 0),
                      f"{key}_max_abs_err": errs[name], f"{key}_ms": ms,
                      f"{key}_device_ms": device_ms,
                      f"{key}_plain_ms": plain_ms, f"{key}_bound_ms": b_ms,
@@ -1483,8 +1704,10 @@ def pool_phase(dev, card: str, raw: bytes, pool_of, min_occur: int,
     check(files == _dir_bytes(res_native),
           f"results differ from native's: {sorted(files)}")
     check(len(scorers) == 1
-          and scorers[0]._sup.tokenizer.tables.match_only,
-          "the loop's scorer was not armed once in REMAP mode")
+          and scorers[0]._sup.tokenizer.tables.match_only
+          and scorers[0].own_table_scores == 0,
+          "the loop's scorer was not armed once in REMAP mode, or a "
+          "candidate left it")
     for cand, datasets, (got_s, got_t, got_miss) in scored:
         want_s, want_t, want_m = native_score(cand, datasets)
         check(np.array_equal(got_s, want_s) and got_t == want_t
@@ -1972,6 +2195,8 @@ def main() -> int:
         phase("trainer: candidate scoring and train_vocab")
         trainer, shared = trainer_phase(dev, card, work)
         require_self_contained("the trainer")
+        phase("trainer: candidates on their own tables")
+        own = own_tables_phase(dev, card, shared.inputs)
         phase("getalltokens: the window sort on the card")
         device_sort = sort_phase(dev, card, shared)
         phase("trainer: multi-device scoring, two slots and two processes")
@@ -1987,6 +2212,7 @@ def main() -> int:
     require_self_contained("the pipeline")
     for k in kernels:
         k.update(trainer.get(k["name"], {}))
+        k.update(own.get(k["name"], {}))
         k.update(bigpool.get(k["name"], {}))
         k["pipeline_launches"] = pipeline[k["name"]]
         if k["name"] in TRAIN_KERNELS:

@@ -692,6 +692,50 @@ def test_remap_scorer_on_card_equals_native(trainer, monkeypatch, how):
     np.testing.assert_array_equal(got[0], other[0])
 
 
+@pytest.mark.parametrize("shift", [20, 21])
+def test_own_tables_scorer_on_card(trainer, monkeypatch, shift):
+    """Candidates on their own tables on the card: the trainer's candidate
+    scored by a scorer never prepared, and the same candidate with an unk
+    token by the prepared scorer, whose superset has none.  Scores, token
+    count and missing set equal the same scorer's plain versions on the
+    CPU and native, over strips of one dispatch and of two; with
+    ``tables.MAX_ENTRIES`` lowered to the candidate's size, at token words
+    of S = 21."""
+    sc0, cand, data = trainer
+    if shift == 21:
+        monkeypatch.setattr(tables, "MAX_ENTRIES", len(cand.tokens))
+    unk = sc0.build([bytes(t) for t in cand.tokens])
+    assert unk.enable_unk_token()
+    assert tables.w3_shift(cand) == tables.w3_shift(unk) == shift
+
+    def scorer(device):
+        sc = GpuCandidateScorer(cand.charset, cand.using_capcode,
+                                cand.normalizer.flag, device=device)
+        sc.set_specials([])
+        return sc
+
+    fresh, plain = scorer(sc0.device), scorer("cpu")
+    own_before = sc0.own_table_scores
+    short = [data[:5000], data[5000:250000]]
+    long = [data[:70000 + (LANES - 1) * CHUNK]]
+    assert len(sc0._sup.tokenizer._plan(len(long[0]))[1]) == 2
+    _build.reset_launches()
+    for sc, c in ((fresh, cand), (sc0, unk)):
+        got = sc.score(c, short)
+        for want in (plain.score(c, short), native_score(c, short)):
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[1:] == want[1:]
+        assert got[2]
+        got, want = sc.score(c, long), native_score(c, long)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:] == want[1:]
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    assert fresh.own_table_scores == 2 and fresh.repairs == 0
+    assert sc0.own_table_scores == own_before + 2
+    assert all(launches[k] >= 6 for k in ("match", "decide", "follow"))
+
+
 def test_device_sort_on_card_equals_cpu_and_host(cuda):
     """The getalltokens window sort on the card: the same order and first
     differences as the same torch ops on the CPU (the same stable passes),

@@ -167,22 +167,37 @@ def test_repairs_across_dispatches(monkeypatch):
     assert 3 <= sc.repairs <= 30
 
 
-def test_candidate_that_does_not_fit_raises():
+def test_candidate_that_does_not_fit_scores_on_its_own_tables():
+    """Where no superset was prepared, where the superset lacks a token of
+    the candidate or has another unk id, and after the specials changed,
+    the candidate is scored on a placement of its own, equal to native;
+    only a candidate the superset fits takes REMAP mode."""
     v = VOCABS["capcode"]()
+    strips = [text_for("capcode", v, 1500, seed=5), b"the<s> <s>"]
     sc = _scorer(v, device="cpu")
-    with pytest.raises(RuntimeError, match="prepare"):
-        sc.score(sc.build(list(v.tokens)), [b"the"])
+    whole = sc.build(list(v.tokens))
     drop = next(t for t in v.tokens if len(t) > 1)
     tokens = [t for t in v.tokens if t != drop]
-    sc.prepare(tokens)
-    with pytest.raises(ValueError, match="not in the prepared superset"):
-        sc.score(sc.build(list(v.tokens)), [b"the"])
     unk = sc.build(tokens)
     assert unk.enable_unk_token()                # the superset has none
-    with pytest.raises(ValueError, match="unk id"):
-        sc.score(unk, [b"the"])
-    with pytest.raises(ValueError, match="specials"):
-        sc.set_specials([b"the"])
+    fits = sc.build(tokens)
+
+    def scored_as_native(cand):
+        got, want = sc.score(cand, strips), native_score(cand, strips)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:] == want[1:]
+
+    scored_as_native(whole)                      # no superset prepared
+    assert sc.own_table_scores == 1 and sc._sup is None
+    sc.prepare(tokens)
+    sc.set_specials([b"<s>"])                    # keeps the superset
+    special = sc.build(tokens + [b"<s>"])
+    assert b"<s>" not in sc._sup.index
+    for cand in (whole, unk, special):
+        scored_as_native(cand)
+    assert sc.own_table_scores == 4
+    scored_as_native(fits)                       # REMAP mode
+    assert sc.own_table_scores == 4 and sc.repairs == 0
     with pytest.raises(ValueError, match="backend"):
         GpuCandidateScorer(1, 2, 0, backend="native", device="cpu")
 
@@ -190,11 +205,12 @@ def test_candidate_that_does_not_fit_raises():
 def test_superset_of_2_20_entries_raises(monkeypatch):
     """A superset of 2^20 entries or more arms as any other, in REMAP mode
     (match tables only, its candidates decided on tables of their own
-    size, whose token words pack 20-bit indices): what still raises is a
-    candidate at the limit, and tokenizing on the match-only superset
-    tables.  A tokenizer of the same vocabulary uploads its whole tables
-    with the wide token word (S = 21) and tokenizes as native does.
-    Shown with the limit lowered to this small pool."""
+    size, whose token words pack 20-bit indices); a candidate at the limit
+    does not fit those words and is scored on its own tables (S = 21).
+    What still raises is tokenizing on the match-only superset tables.  A
+    tokenizer of the same vocabulary uploads its whole tables with the
+    wide token word (S = 21) and tokenizes as native does.  Shown with the
+    limit lowered to this small pool."""
     assert tables.MAX_ENTRIES == 1 << 20
     v = VOCABS["plain"]()
     monkeypatch.setattr(tables, "MAX_ENTRIES", len(v.tokens))
@@ -207,8 +223,12 @@ def test_superset_of_2_20_entries_raises(monkeypatch):
     got, want = sc.score(cand, strips), native_score(cand, strips)
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1:] == want[1:]
-    with pytest.raises(NotImplementedError, match="2\\^20"):
-        sc.score(sc.build(list(v.tokens)), strips)
+    assert sc.own_table_scores == 0
+    whole = sc.build(list(v.tokens))
+    assert tables.w3_shift(whole) == 21
+    got, want = sc.score(whole, strips), native_score(whole, strips)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:] and sc.own_table_scores == 1
     with pytest.raises(NotImplementedError, match="match-only"):
         sc._sup.tokenizer.tokenize(strips[0])
     tk = GpuTokenizer(v, device="cpu")

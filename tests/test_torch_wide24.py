@@ -48,6 +48,7 @@ from tokenmonster_tpu_torch.ops.follow import follow
 from tokenmonster_tpu_torch.ops.match import match_plain
 from tokenmonster_tpu_torch.ops.scan import GpuTokenizer
 from tokenmonster_tpu_torch.train import trainvocab as port
+from tokenmonster_tpu_torch.train.score_helpers import candidate_runtime_state
 
 from torch_cases import (ENGLISH, EXAMPLES, OVERLAP, VOCABS, candidate,
                          drop_sets, hashmatch_tables, native_score,
@@ -385,7 +386,7 @@ def test_scorer_on_22_bit_fields_equals_jax_pallas_and_native(name,
         np.testing.assert_array_equal(s, ns)
         assert n_tok == jt == nt and miss == jm == nm
     assert jsc.tpu_compiles == 1
-    tabs = port.candidate_runtime_state(sc._sup, cand)
+    tabs = candidate_runtime_state(sc._sup, cand)
     assert tabs.w3_shift == 20
 
 

@@ -1,8 +1,9 @@
 """Inputs of the port's multi-device scoring tests, shared by the tests in
-one process (tests/test_torch_multidevice.py, the gpu-marked ones in
-tests/test_torch_gpu.py) and the ranks of the two-process test
-(tests/torch_multihost_worker.py): candidates and strips that take each
-path of ``parallel/score.py::score_slots``, and a seeded ``train_vocab``.
+one process (tests/test_torch_multidevice.py, tests/test_torch_own_tables.py,
+the gpu-marked ones in tests/test_torch_gpu.py) and the ranks of the
+two-process tests (tests/torch_multihost_worker.py): candidates and strips
+that take each path of ``parallel/score.py::score_slots``, on a prepared
+superset and on the candidates' own tables, and a seeded ``train_vocab``.
 Imports no jax."""
 
 import contextlib
@@ -64,6 +65,16 @@ def scorer(v, device):
     return sc
 
 
+def unprepared(v, device):
+    """A ``GpuCandidateScorer`` for ``v``'s configuration on ``device``,
+    never prepared: it scores every candidate on the candidate's own
+    tables."""
+    sc = port.GpuCandidateScorer(v.charset, v.using_capcode,
+                                 v.normalizer.flag, device=device)
+    sc.set_specials([])
+    return sc
+
+
 def scoring_cases(device) -> dict:
     """name -> (scorer on ``device``, candidate, strips), to be scored
     under ``split_geometry``: "whole": 20 strips, one empty (whole strips
@@ -84,6 +95,23 @@ def scoring_cases(device) -> dict:
     sc = scorer(v, device)
     out["repair"] = (sc, sc.build(list(v.tokens)),
                      [b"x" + b"a" * 9000 + b"xaaxa" * 20])
+    return out
+
+
+def own_table_cases(device) -> dict:
+    """name -> (scorer on ``device``, candidate, strips), to be scored
+    under ``split_geometry``, every candidate on its own tables:
+    ``scoring_cases``'s candidates and strips on a scorer never prepared
+    ("own_whole", "own_split", "own_repair"), and "own_unk": the capcode
+    vocabulary with its unk token against a prepared superset without one,
+    over the split strip."""
+    out = {f"own_{name}": (unprepared(cand, device), cand, strips)
+           for name, (_sc, cand, strips) in scoring_cases(device).items()}
+    v = VOCABS["capcode"]()
+    sc = scorer(v, device)
+    cand = sc.build(list(v.tokens))
+    assert cand.enable_unk_token()
+    out["own_unk"] = (sc, cand, [text_for("capcode", v, 9000, seed=9)])
     return out
 
 
@@ -110,10 +138,12 @@ def train(results, device, backend="cuda", max_rounds=None):
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def launch_ranks(work, device: str, timeout_s: float, world: int = 2):
+def launch_ranks(work, device: str, timeout_s: float, world: int = 2,
+                 mode: str = "train"):
     """Run ``world`` ranks of tests/torch_multihost_worker.py over one gloo
     rendezvous on localhost, each scoring on ``device``, in ``work`` (which
-    holds ``pool``'s file).  Each has its own timeout.  Returns per rank
+    holds ``pool``'s file where ``mode`` is "train"; "own" scores
+    ``own_table_cases`` only).  Each has its own timeout.  Returns per rank
     (its scores by case, its round log and best path)."""
     sock = socket.socket()
     sock.bind(("localhost", 0))
@@ -123,7 +153,7 @@ def launch_ranks(work, device: str, timeout_s: float, world: int = 2):
     env.pop("JAX_PLATFORMS", None)
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "torch_multihost_worker.py"),
-         str(rank), str(world), port_no, str(work), device],
+         str(rank), str(world), port_no, str(work), device, mode],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for rank in range(world)]
     outs = []

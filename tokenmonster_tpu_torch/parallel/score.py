@@ -2,15 +2,19 @@
 
 Port of ``tokenmonster_tpu/parallel/score.py::make_pallas_score_step``:
 each corpus strip goes through ``GpuTokenizer``'s planning, staging and
-dispatch chain
-(match, decide and follow on the candidate's ``CandidateTables``, with
-``start_next`` carried on the device; REMAP mode: the match words are
-mapped to candidate indices before decide), whose epilogue here is
+dispatch chain (match, decide and follow on the candidate's tables, with
+``start_next`` carried on the device), whose epilogue here is
 ``device_stitch_score``: chars-covered scores per candidate id over the
 spliced record stream, the token count and the missing-byte mask, as the
 native contiguous scorer (``tm_tokenize_score``) counts them.  Scores,
 counts and masks accumulate on the device across strips and are read back
-once per candidate.  Missing bytes are scored on the device.
+once per candidate.  Missing bytes are scored on the device.  The
+candidate's tables are its ``CandidateTables`` on a superset's match
+tables (REMAP mode: the match words are mapped to candidate indices
+before decide), or, where no superset fits it, the full ``DeviceTables``
+of its own placement, held by a ``GpuTokenizer`` of the candidate (the
+JAX package's exact scorer on the candidate's own tables,
+``make_exact_score_step``).
 
 A strip that overflows the fast record window is scored again on the full
 window; a full-window overflow is a kernel fault and raises.  A junction
@@ -46,12 +50,12 @@ import torch
 
 from ..ops.scan import GpuTokenizer
 from ..ops.stitch import device_stitch_score
-from ..ops.tables import CandidateTables
 from . import multihost
 
 
-def score_epilogue(tabs: CandidateTables, n_ids: int, chunk: int):
-    """The dispatch epilogue that scores ``tabs``'s candidate: token words
+def score_epilogue(tabs, n_ids: int, chunk: int):
+    """The dispatch epilogue that scores ``tabs``'s candidate (its
+    ``CandidateTables`` or its own ``DeviceTables``): token words
     resolve to candidate ids through the candidate-sized ``ids3`` (one
     gather per record slot, as ``make_pallas_score_step`` does; slots that
     emit nothing are masked in ``device_stitch_score``), then the scores
@@ -96,10 +100,11 @@ def _repair(tk: GpuTokenizer, staged, data: bytes, tabs, epilogue, flags,
     return s.cpu().numpy(), int(nt), mm.cpu().numpy(), repairs
 
 
-def score_strips(tk: GpuTokenizer, tabs: CandidateTables, datasets,
-                 n_ids: int):
+def score_strips(tk: GpuTokenizer, tabs, datasets, n_ids: int):
     """Score every strip of ``datasets`` with ``tabs``'s candidate, every
-    byte on the device.
+    byte on the device: ``tabs`` is its ``CandidateTables`` on ``tk``'s
+    superset tables, or ``tk.tables`` where ``tk`` is a tokenizer of the
+    candidate itself.
 
     Returns (scores int64 [n_ids], n_tokens, miss_mask int64 [256],
     repairs): totals over the strips, and the junction repairs made."""
@@ -142,12 +147,13 @@ def score_strips(tk: GpuTokenizer, tabs: CandidateTables, datasets,
 
 
 class Slot:
-    """One scoring slot: a superset tokenizer on its device, with a thread
-    and, on a card, a stream of its own."""
+    """One scoring slot on ``device``, with a thread and, on a card, a
+    stream of its own; ``tokenizer``: the prepared superset's tokenizer
+    on that device, None until one is armed."""
 
-    def __init__(self, tokenizer: GpuTokenizer):
-        self.tokenizer = tokenizer
-        self.device = tokenizer.device
+    def __init__(self, device: torch.device):
+        self.tokenizer = None
+        self.device = device
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self._thread = ThreadPoolExecutor(max_workers=1)
@@ -199,14 +205,13 @@ def _score_piece(tk: GpuTokenizer, tabs, epilogue, data: bytes, first: int,
                                     final)[warm:])
 
 
-def _slot_share(tk: GpuTokenizer, host_state: tuple, datasets, pieces,
-                n_dispatches, n_ids: int):
-    """One slot's share of a candidate, on its thread: the candidate's
-    tables uploaded to the slot's device, the sums of its whole strips
-    (repaired where needed) and of each share of a split strip, with
-    whether that share held.  Returns (tabs, (scores, n_tokens, miss_mask,
-    repairs), [(strip, scores, n_tokens, miss_mask, ok)])."""
-    tabs = CandidateTables(tk.tables, *host_state)
+def _slot_share(tk: GpuTokenizer, tabs, datasets, pieces, n_dispatches,
+                n_ids: int):
+    """One slot's share of a candidate on ``tabs`` (on the slot's device),
+    on its thread: the sums of its whole strips (repaired where needed)
+    and of each share of a split strip, with whether that share held.
+    Returns ((scores, n_tokens, miss_mask, repairs), [(strip, scores,
+    n_tokens, miss_mask, ok)])."""
     epilogue = score_epilogue(tabs, n_ids, tk.chunk)
     split, whole = [], []
     for i, first, stop in pieces:
@@ -223,36 +228,40 @@ def _slot_share(tk: GpuTokenizer, host_state: tuple, datasets, pieces,
         h = t.cpu().numpy()
         parts.append((i, h[:n_ids], int(h[n_ids]),
                       h[n_ids + 1:n_ids + 257], bool(h[-1])))
-    return tabs, sums, parts
+    return sums, parts
 
 
-def score_slots(slots: list, host_state: tuple, datasets, n_ids: int,
-                rank: int = 0, world: int = 1):
+def score_slots(slots: list, arm, datasets, n_ids: int, rank: int = 0,
+                world: int = 1):
     """Score every strip of ``datasets`` with a candidate over the scoring
-    ``slots`` of this process (``Slot``s on the superset's tokenizers) and,
-    in a run of ``world`` processes, every other rank's: ``host_state`` is
-    the candidate's ``candidate_host_state``, uploaded by each slot.  Every
-    rank must call it with the same strips.  Returns ``score_strips``'s
-    (scores, n_tokens, miss_mask, repairs), the first three over every
-    rank, the repairs this process made."""
+    ``slots`` of this process and, in a run of ``world`` processes, every
+    other rank's.  ``arm(slot)``, run on each slot's thread and stream,
+    puts the candidate's tables on the slot's device and returns (the
+    tokenizer that plans, stages and chains there, the tables): the slot's
+    superset tokenizer and the candidate's ``CandidateTables``, or a
+    tokenizer of the candidate and its own tables.  Every rank must call
+    it with the same strips and tokenizers of the same chunk.  Returns
+    ``score_strips``'s (scores, n_tokens, miss_mask, repairs), the first
+    three over every rank, the repairs this process made."""
     n_local = len(slots)
-    tk0 = slots[0].tokenizer
+    armed = [f.result() for f in [slot.run(arm, slot) for slot in slots]]
+    tk0 = armed[0][0]
     n_disp = [len(tk0._plan(len(d))[1]) if len(d) else 0 for d in datasets]
     plan = plan_pieces(n_disp, n_local * world)
     mine = plan[rank * n_local:(rank + 1) * n_local]
     shares = [f.result() for f in
-              [slot.run(_slot_share, slot.tokenizer, host_state, datasets,
-                        pieces, n_disp, n_ids)
-               for slot, pieces in zip(slots, mine)]]
+              [slot.run(_slot_share, tk, tabs, datasets, pieces, n_disp,
+                        n_ids)
+               for slot, (tk, tabs), pieces in zip(slots, armed, mine)]]
     scores = np.zeros(n_ids, np.int64)
     miss_mask = np.zeros(256, np.int64)
     n_tokens, repairs = 0, 0
-    for _tabs, (s, nt, mm, r), _parts in shares:
+    for (s, nt, mm, r), _parts in shares:
         scores += s
         n_tokens += nt
         miss_mask += mm
         repairs += r
-    parts = [p for share in shares for p in share[2]]
+    parts = [p for share in shares for p in share[1]]
 
     def with_parts(keep):
         out = [scores.copy(), n_tokens, miss_mask.copy()]
@@ -281,8 +290,7 @@ def score_slots(slots: list, host_state: tuple, datasets, n_ids: int,
         for i, first, _stop in pieces:
             if i in bad and first == 0:
                 s, nt, mm, r = slots[k].run(
-                    score_strips, slots[k].tokenizer, shares[k][0],
-                    [datasets[i]], n_ids).result()
+                    score_strips, *armed[k], [datasets[i]], n_ids).result()
                 out[0] += s
                 out[1] += nt
                 out[2] += mm

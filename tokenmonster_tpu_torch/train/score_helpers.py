@@ -9,11 +9,13 @@ metadata planes and emitted ids at its own indices, with the alive-rank
 of every superset index.  Both dictionaries sort with the same
 comparator, so a candidate's dictionary index is the rank of its
 superset position among the live ones; that is checked for every
-candidate.  The masking runs in host numpy through
-``hashmatch.compose_fields(c, alive)``, as in the JAX package.  The JAX
-package pads a REMAP candidate's planes and ids to a power of two of rows
-for its compiled shapes, and keeps a second mode that places them at
-superset positions; here they keep their own size, in the one mode.
+candidate, and a candidate the superset does not fit gets None (the
+trainer then scores it on tables of its own).  The masking runs in host
+numpy through ``hashmatch.compose_fields(c, alive)``, as in the JAX
+package.  The JAX package pads a REMAP candidate's planes and ids to a
+power of two of rows for its compiled shapes, and keeps a second mode
+that places them at superset positions; here they keep their own size,
+in the one mode.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ import numpy as np
 from ..core.tokenmeta import DOES_NOT_EXIST
 from ..ops.hashmatch import HashMatchTables
 from ..ops.scan import GpuTokenizer
-from ..ops.tables import (CandidateTables, build_meta_planes, flat_tables,
-                          ids3, smem_scalars)
+from ..ops.tables import (W3_SHIFT, CandidateTables, build_meta_planes,
+                          flat_tables, ids3, smem_scalars, w3_shift)
 
 
 @dataclass(frozen=True)
@@ -40,46 +42,49 @@ class Superset:
     tokenizer: GpuTokenizer
 
 
-def candidate_runtime_state(sup: Superset, cand) -> CandidateTables:
+def candidate_runtime_state(sup: Superset, cand) -> CandidateTables | None:
     """The candidate's kernel tables, on the superset's device:
     alive-masked match tables, the candidate's meta planes, begin-byte
     table and ids3 at its own indices, ``rank``, the alive-rank of each
     superset index (``cumsum(alive) - 1``, 0 where it is dead), and its
-    delete id (``.delete_token``).  Raises ValueError for a candidate that does not fit the superset:
-    another delete config, charset or unk id, a token the superset lacks,
-    or a dictionary order the superset's does not give."""
-    return CandidateTables(sup.tokenizer.tables,
-                           *candidate_host_state(sup, cand))
+    delete id (``.delete_token``); or None where the superset does not
+    fit the candidate (``candidate_host_state``)."""
+    state = candidate_host_state(sup, cand)
+    if state is None:
+        return None
+    return CandidateTables(sup.tokenizer.tables, *state)
 
 
-def candidate_host_state(sup: Superset, cand) -> tuple:
+def candidate_host_state(sup: Superset, cand) -> tuple | None:
     """``candidate_runtime_state``'s host work, once a candidate: the
     arguments after the superset's tables of ``CandidateTables``, which
     uploads them to the device of the tables it is given (one call for
-    each scoring slot)."""
+    each scoring slot).  None where the superset does not fit the
+    candidate, as the JAX ``candidate_runtime_state`` returns None: another
+    delete config, charset or unk id, a token the superset lacks, or a
+    dictionary order the superset's does not give; here also a candidate
+    whose token words need more than W3_SHIFT bits (2^20 entries or more,
+    or a literal id past them), since a REMAP candidate's words are
+    W3_SHIFT words.  The trainer scores such a candidate on tables of its
+    own (``GpuCandidateScorer.score``)."""
     v_sup = sup.vocab
     if ((cand.delete_token != DOES_NOT_EXIST)
             != (v_sup.delete_token != DOES_NOT_EXIST)
             or cand.charset != v_sup.charset):
-        raise ValueError("candidate's delete token or charset differs from "
-                         "the prepared superset's")
+        return None
     if ((cand.unk_token != DOES_NOT_EXIST)
             != (v_sup.unk_token != DOES_NOT_EXIST)
             or (cand.unk_token != DOES_NOT_EXIST
                 and (cand.unk_token & 0xFFFFFF)
                 != (v_sup.unk_token & 0xFFFFFF))):
-        raise ValueError("candidate's unk id differs from the prepared "
-                         "superset's")
+        return None
+    if w3_shift(cand) != W3_SHIFT:
+        return None
     n_c = len(cand.tokens)
     pos = np.fromiter((sup.index.get(bytes(t), -1) for t in cand.tokens),
                       np.int64, n_c)
-    if n_c and pos.min() < 0:
-        tok = bytes(cand.tokens[int(np.argmin(pos))])
-        raise ValueError(f"candidate token {tok!r} is not in the prepared "
-                         "superset")
-    if not np.all(np.diff(pos) > 0):
-        raise ValueError("candidate dictionary order differs from the "
-                         "superset's")
+    if (n_c and pos.min() < 0) or not np.all(np.diff(pos) > 0):
+        return None
     alive = np.zeros(len(v_sup.tokens), bool)
     alive[pos] = True
 

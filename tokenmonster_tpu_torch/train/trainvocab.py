@@ -34,7 +34,9 @@ about 800,000 candidates expands to about 1.2 M) score as any other.
 ``GpuCandidateScorer`` places the hash tables of the superset once
 (``prepare``) and scores each candidate vocabulary by masking that
 placement to it (``train/score_helpers.py``) and running the kernels over
-the strips (``parallel/score.py``).  Scores, token counts and missing-byte
+the strips (``parallel/score.py``); a candidate that no prepared superset
+fits is scored on tables of its own placement, as the JAX package's
+exact scorer scores it.  Scores, token counts and missing-byte
 sets equal the native scorer's exactly, so a seeded run makes the native
 backend's deletions and writes the same files.
 
@@ -70,8 +72,7 @@ from ..ops.scan import GpuTokenizer
 from ..parallel import multihost
 from ..parallel.score import Slot, score_slots, score_strips
 from .getalltokens import load_tokens_file, save_tokens_with_scores
-from .score_helpers import (Superset, candidate_host_state,
-                            candidate_runtime_state)
+from .score_helpers import Superset, candidate_host_state
 
 log = logging.getLogger("tokenmonster_tpu_torch.trainvocab")
 
@@ -162,23 +163,32 @@ class GpuCandidateScorer(CandidateScorer):
     """``CandidateScorer`` with ``backend="cuda"``: the CUDA kernels on a
     CUDA ``device``, their plain PyTorch versions on ``"cpu"``.
 
-    ``prepare(superset_tokens)`` builds the superset vocabulary and its
-    hash placement once, in REMAP mode; ``score(cand, datasets)`` then
-    scores any
-    candidate built from a subset of it, with ``CandidateScorer.score``'s
-    contract.  A candidate that does not fit the superset raises.  Every
-    byte is scored on the device: a junction whose lanes share no state is
-    repaired there (``parallel/score.py``), counted in ``repairs``.
-    With ``pool`` (as ``train_vocab`` builds it), ``set_specials`` also
-    prepares ``pool`` plus the specials.  ``score`` may run from several
-    threads: each call builds its own candidate tables.
+    ``score(cand, datasets)`` scores any candidate, with
+    ``CandidateScorer.score``'s contract, as the JAX
+    ``CandidateScorer(backend="tpu")`` does.  ``prepare(superset_tokens)``
+    builds a superset vocabulary and its hash placement once, in REMAP
+    mode: a candidate the superset fits (``candidate_host_state``: a
+    subset of it in its order, with its delete config, charset and unk id)
+    is scored on the superset's match tables masked to it.  Any other
+    candidate, and every candidate where no superset was prepared, is
+    scored on the full tables of a placement of its own, built on the host
+    once a call and uploaded to each scoring device; those calls are
+    counted in ``own_table_scores``.  Every byte is scored on the device:
+    a junction whose lanes share no state is repaired there
+    (``parallel/score.py``), counted in ``repairs``.  With ``pool`` (as
+    ``train_vocab`` builds it), ``set_specials`` also prepares ``pool``
+    plus the specials; a later ``set_specials`` keeps the superset, and
+    candidates holding specials it lacks take their own tables.
+    ``score`` may run from several threads: each call builds its own
+    candidate tables.
 
     ``device``: the scoring slots (``multihost.local_devices``): "cuda" is
     every visible card, "cuda:k" one, a list one slot per entry.  With
     several slots, or in a process group of several ranks (``world``),
-    each slot arms its own copy of the superset's tables from the one
-    placement and every candidate is split over the slots of every rank
-    (``parallel/score.py::score_slots``); the scores equal one device's."""
+    each slot arms its own copy of the superset's tables (or of a
+    candidate's own) from the one placement and every candidate is split
+    over the slots of every rank (``parallel/score.py::score_slots``); the
+    scores equal one device's."""
 
     def __init__(self, charset, using_capcode, norm_flag, backend="cuda",
                  device="cuda", pool=None):
@@ -189,17 +199,16 @@ class GpuCandidateScorer(CandidateScorer):
         self.devices = multihost.local_devices(device)
         self.device = self.devices[0]
         self.rank, self.world = multihost.process_info()
-        self._slots = None
+        self._slots = ([Slot(d) for d in self.devices]
+                       if len(self.devices) > 1 or self.world > 1 else None)
         self.repairs = 0
+        self.own_table_scores = 0
         self._pool = pool
         self._sup = None
         self._count_lock = threading.Lock()
 
     def set_specials(self, specials):
         specials = frozenset(specials)
-        if self._sup is not None and specials != self._special_set:
-            raise ValueError("specials differ from those the prepared "
-                             "superset was built with")
         super().set_specials(specials)
         if self._pool is not None:
             self.prepare(list(self._pool) + sorted(specials))
@@ -229,11 +238,12 @@ class GpuCandidateScorer(CandidateScorer):
             vocab=v_sup,
             index={bytes(t): i for i, t in enumerate(v_sup.tokens)},
             hashmatch=hashmatch_tables, tokenizer=tks[0])
-        if len(tks) > 1 or self.world > 1:
+        if self._slots is not None:
             for d in self.devices:     # the slots' streams see the tables
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)
-            self._slots = [Slot(tk) for tk in tks]
+            for slot, tk in zip(self._slots, tks):
+                slot.tokenizer = tk
         log.info("cuda trainer armed on %s (rank %d of %d): superset %d "
                  "tokens, delete=%s, remap=True",
                  ", ".join(map(str, self.devices)), self.rank, self.world,
@@ -241,21 +251,43 @@ class GpuCandidateScorer(CandidateScorer):
 
     def score(self, cand, datasets: list[bytes]):
         """(scores int64 [n_ids], tokens in text, set of missing byte
-        values) of ``cand`` over ``datasets``."""
-        if self._sup is None:
-            raise RuntimeError("GpuCandidateScorer.prepare was not called")
+        values) of ``cand`` over ``datasets``: on the prepared superset's
+        masked tables where it fits ``cand``, else on ``cand``'s own."""
         n_ids = len(cand.reverse)
+        state = (None if self._sup is None
+                 else candidate_host_state(self._sup, cand))
+        if state is None:
+            arm = self._own_tables(cand)
+        else:
+            def arm(slot):
+                tk = self._sup.tokenizer if slot is None else slot.tokenizer
+                return tk, tables.CandidateTables(tk.tables, *state)
         if self._slots is None:
-            tabs = candidate_runtime_state(self._sup, cand)
             scores, n_tokens, miss_mask, repairs = score_strips(
-                self._sup.tokenizer, tabs, datasets, n_ids)
+                *arm(None), datasets, n_ids)
         else:
             scores, n_tokens, miss_mask, repairs = score_slots(
-                self._slots, candidate_host_state(self._sup, cand),
-                datasets, n_ids, self.rank, self.world)
+                self._slots, arm, datasets, n_ids, self.rank, self.world)
         with self._count_lock:
             self.repairs += repairs
+            self.own_table_scores += state is None
         return scores, n_tokens, {int(b) for b in np.nonzero(miss_mask)[0]}
+
+    def _own_tables(self, cand):
+        """``cand``'s own hash placement, built on the host, and the arm
+        that uploads its full tables (S = ``tables.w3_shift(cand)``) to a
+        scoring slot's device (None: the first device) as a tokenizer of
+        ``cand``: (tokenizer, its tables)."""
+        tables.check_placement(len(cand.tokens))
+        placement = build_hashmatch(cand.tokens,
+                                    space_prefix=tables.space_prefix(cand))
+
+        def arm(slot):
+            tk = GpuTokenizer(
+                cand, chunk=CHUNK, hashmatch_tables=placement,
+                device=self.device if slot is None else slot.device)
+            return tk, tk.tables
+        return arm
 
 
 def _checkpoint_paths(dictionary_path) -> list:
