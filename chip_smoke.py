@@ -12,7 +12,10 @@ the native host tokenizer, shows the counted host fallback, and times each
 kernel beside its plain version and an empty kernel (the launch floor),
 launched back to back from the host (``ms``) and queued behind a spin (the
 card alone, ``device_ms``), then the staged device chain, the end-to-end
-call and the native tokenizer.
+call and the native tokenizer; then the chain as the tokenizer runs it,
+captured as CUDA graphs, against the same chain enqueued op by op, in
+turns (ids, launches, captures, chain, enqueue, metadata read, download
+and e2e times), here and at both pool-scale tokenizers.
 
 The trainer phase distils a getalltokens pool of 8 MiB of real text toward
 32,000 ids in the trainer's REMAP mode (match on a candidate's masked
@@ -128,6 +131,7 @@ LIBRARY = {                   # why no single PyTorch call computes it
 }
 
 
+CAPTURED = {}                 # the captured-chain phase's numbers, a cell
 HOLD_CYCLES = 4_000_000       # about 2 ms at the card's clock: the host
                               # queues 10 launches in well under that
 T0 = time.perf_counter()
@@ -446,7 +450,8 @@ def trainer_inputs(dev, card: str, work: str):
         return sc.build(singles + multi[:TRAIN_VOCAB - len(singles)])
 
     tk = sc._sup.tokenizer
-    _n, lanes, bufs = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
+    staged = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
+    lanes, bufs = staged.lanes, staged.bufs
     require(lanes == LANES, f"{lanes} lanes staged")
     buf, n, _last = bufs[0]
     return SimpleNamespace(raw=raw, tok_path=tok_path, norm_flag=norm_flag,
@@ -874,7 +879,8 @@ def own_tables_phase(dev, card: str, t) -> dict:
           f"launches {launches} [{card}]")
 
     tk = own_tks[0]
-    _n, lanes, bufs = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
+    staged = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
+    lanes, bufs = staged.lanes, staged.bufs
     require(lanes == LANES, f"{lanes} lanes staged")
     N, pairs, work_of, plan = dispatch_pairs(tk, bufs[0][0], bufs[0][1],
                                              True)
@@ -1345,7 +1351,8 @@ def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
           f"included), native {native_score_s:.3f} s; junction repairs "
           f"{repairs}; launches {own_launches} [{card}]")
 
-    _n, lanes, bufs = wtk.stage(text[:(LANES - 1) * wtk.chunk + MARGIN])
+    staged = wtk.stage(text[:(LANES - 1) * wtk.chunk + MARGIN])
+    lanes, bufs = staged.lanes, staged.bufs
     require(lanes == LANES, f"{lanes} lanes staged")
     N, pairs, work_of, plan = dispatch_pairs(wtk, bufs[0][0], bufs[0][1],
                                              True)
@@ -1445,6 +1452,188 @@ def wide_tokenizer_phase(dev, card: str, sup, raw: bytes, text: bytes,
           f"{statistics.median(e2e):.3f} s over {len(raw)} raw bytes, "
           f"native {statistics.median(nat):.3f} s on the normalized text "
           f"({os.cpu_count()} host threads), medians of 3 in turns [{card}]")
+    phase(f"{key} tokenizer: the captured chain against eager")
+    CAPTURED[key] = captured_chain_phase(card, key, vocab, raw, want, 3)
+    return out
+
+
+class _Steps:
+    """The seconds of each step of ``load(...).tokenize`` calls on the
+    device tokenizer ``tk`` of ``core`` while ``timing()`` patches them:
+    normalization, staging and upload, the chain's enqueue and the chain
+    (enqueue to the card's synchronise), the metadata read, the repair
+    pass (where a junction did not hold), the id download and, within it,
+    the host's expansion of the delete bitmask.  Each patched step but the
+    read ends in a card synchronise, so its seconds are its own."""
+
+    def __init__(self, tk, core, run_name: str):
+        self.tk, self.core, self.run_name = tk, core, run_name
+        self.steps = {}
+
+    def _add(self, name: str, seconds: float) -> None:
+        self.steps[name] = self.steps.get(name, 0.0) + seconds
+
+    def _timed(self, name: str, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self._add(name, time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def _run(self, fn):
+        def wrapped(staged):
+            t0 = time.perf_counter()
+            out = fn(staged)
+            self._add("enqueue", time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            self._add("chain", time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def _read(self, fn):
+        def wrapped(tensors):
+            t0 = time.perf_counter()
+            out = fn(tensors)
+            if "meta" not in self.steps:      # the call's first read
+                self._add("meta", time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def timing(self):
+        """The patches, as one context manager."""
+        from contextlib import ExitStack
+        from unittest import mock
+
+        from tokenmonster_tpu_torch.ops import finish
+        tk, stack = self.tk, ExitStack()
+        run = getattr(tk, self.run_name)
+        for obj, name, fn in (
+                (self.core, "normalize", self._timed("normalize",
+                                                     self.core.normalize)),
+                (tk, "stage", self._timed("stage", tk.stage)),
+                (tk, "_run_captured", self._run(run)),
+                (tk, "_read", self._read(tk._read)),
+                (tk, "run_repaired", self._timed("repair", tk.run_repaired)),
+                (tk, "_download", self._timed("download", tk._download)),
+                (finish, "host_ids", self._timed("expand", finish.host_ids))):
+            stack.enter_context(mock.patch.object(obj, name, fn))
+        return stack
+
+
+def captured_chain_phase(card: str, key: str, vocab, raw: bytes, want,
+                         repeat: int = REPEAT) -> dict:
+    """The tokenizer's chain as captured CUDA graphs against the same chain
+    enqueued op by op, through ``vocab`` (``load(..., device="cuda")``,
+    route pinned to "device") on ``raw``: each path's ids (FNV-1a 64)
+    against native's ``want`` and each other's, every call on the device
+    route with no host fallback, the launches per kernel of one call of
+    each (equal), the captures against the geometries used; then in turns
+    (eager, captured, captured, eager, ...) the chain's wall and enqueue
+    ms on a staged text, one call's steps (``_Steps``) and one call's e2e,
+    ``repeat`` rounds.  The eager path is the captured one with
+    ``_run_captured`` replaced by ``_run_eager``.  Returns the numbers."""
+    from contextlib import nullcontext
+    from unittest import mock
+
+    from tokenmonster_tpu_torch.ops import _build
+    from tokenmonster_tpu_torch.ops.scan import MAX_FUSED_DISPATCHES
+
+    core = vocab._core
+    tk = vocab._tpu_tokenizer()
+    vocab.route = "device"
+    norm = core.normalize(raw)
+    h_want = fnv1a64(want)
+
+    def mode(name: str):
+        return (mock.patch.object(tk, "_run_captured", tk._run_eager)
+                if name == "eager" else nullcontext())
+
+    fallbacks, routes = tk.host_fallbacks, dict(vocab.route_counts)
+    t0 = time.perf_counter()
+    vocab.tokenize(raw)              # the geometry captured, if it is new
+    first_s = time.perf_counter() - t0
+    calls, ids_of = {}, {}
+    for name in ("captured", "eager"):
+        with mode(name):
+            _build.reset_launches()
+            ids = np.asarray(vocab.tokenize(raw), np.uint32)
+            torch.cuda.synchronize()
+        calls[name] = dict(_build.launches)
+        ids_of[name] = ids
+        h = fnv1a64(ids)
+        require(np.array_equal(ids, want) and h == h_want,
+                f"{key}: the {name} path's ids differ from native")
+        print(f"{key} {name}: {len(ids)} ids, fnv1a64 {h:016x} (native "
+              f"{h_want:016x}); launches of one call {calls[name]}")
+    require(np.array_equal(ids_of["captured"], ids_of["eager"]),
+            f"{key}: captured and eager ids differ")
+    require(calls["captured"] == calls["eager"],
+            f"{key}: launches differ: {calls}")
+    require(all(calls["captured"][k] > 0 for k in TPU_KERNELS),
+            f"{key}: a kernel was not launched: {calls}")
+    lanes, plan = tk._plan(len(norm))
+    k = len(plan)
+    keys = {(lanes, min(MAX_FUSED_DISPATCHES, k - g), False)
+            for g in range(0, k, MAX_FUSED_DISPATCHES)}
+    require(keys <= set(tk._graphs), f"{key}: geometries {sorted(keys)} "
+                                     f"not captured: {sorted(tk._graphs)}")
+
+    staged = tk.stage(norm)
+    times = {"captured": [], "eager": []}
+    for r in range(repeat):
+        for name in (("eager", "captured") if r % 2 == 0
+                     else ("captured", "eager")):
+            run = tk._run_eager if name == "eager" else tk._run_captured
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(staged)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            steps = _Steps(tk, core, "_run_eager" if name == "eager"
+                           else "_run_captured")
+            with steps.timing():
+                vocab.tokenize(raw)
+            with mode(name):
+                t3 = time.perf_counter()
+                vocab.tokenize(raw)
+                t4 = time.perf_counter()
+            times[name].append({"chain": t2 - t0, "enqueue": t1 - t0,
+                                "e2e": t4 - t3, **{f"step_{s}": v for s, v
+                                                   in steps.steps.items()}})
+    fell_back = tk.host_fallbacks - fallbacks
+    require(fell_back == 0, f"{key}: a call fell back")
+    n_calls = 3 + 2 * 2 * repeat
+    routes = {r: vocab.route_counts[r] - routes[r] for r in routes}
+    require(routes == {"device": n_calls, "native": 0},
+            f"{key}: a call took another route: {routes}")
+    out = {"first_call_s": first_s, "captures": tk.captures,
+           "graph_keys": sorted(map(list, tk._graphs)),
+           "launches_per_call": calls["captured"], "repairs": tk.repairs,
+           "route_counts": routes, "host_fallbacks": fell_back,
+           "normalized_bytes": len(norm), "raw_bytes": len(raw)}
+    for name, runs in times.items():
+        med = {m: statistics.median(r.get(m, 0.0) for r in runs)
+               for m in runs[0]}
+        for m, v in med.items():
+            out[f"{name}_{m}_ms"] = v * 1e3
+        split = ", ".join(f"{m[5:]} {v * 1e3:.3f}" for m, v in med.items()
+                          if m.startswith("step_"))
+        print(f"{key} {name}: chain {med['chain'] * 1e3:.3f} ms "
+              f"({len(norm) / med['chain'] / 1e6:.3f} MB/s over "
+              f"{len(norm)} normalized bytes), enqueue "
+              f"{med['enqueue'] * 1e3:.3f} ms; e2e {med['e2e'] * 1e3:.3f} "
+              f"ms ({len(raw) / med['e2e'] / 1e6:.3f} MB/s over {len(raw)} "
+              f"raw bytes); one call's steps, each ending in a card "
+              f"synchronise (ms): {split}; medians of {repeat} in turns "
+              f"[{card}]")
+    print(f"{key}: {tk.captures} captures for geometries "
+          f"{sorted(tk._graphs)} (this text: {sorted(keys)}); first call "
+          f"{first_s:.3f} s; this phase's {n_calls} calls: route counts "
+          f"{routes}, host_fallbacks {fell_back}; junction repairs "
+          f"{tk.repairs} (the tokenizer's calls so far) [{card}]")
     return out
 
 
@@ -1577,7 +1766,8 @@ def pool_phase(dev, card: str, raw: bytes, pool_of, min_occur: int,
     multi = [t for t in pool if len(t) > 1]
     rng = random.Random(TRAIN_SEED)
     tk = sup.tokenizer
-    _n, lanes, bufs = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
+    staged = tk.stage(text[:(LANES - 1) * tk.chunk + MARGIN])
+    lanes, bufs = staged.lanes, staged.bufs
     require(lanes == LANES, f"{lanes} lanes staged")
     t = SimpleNamespace(buf=bufs[0][0], n=bufs[0][1], tk=tk,
                         t_rec=tk._t_rec(False))
@@ -2066,8 +2256,10 @@ def main() -> int:
     tk = vocab._tpu
     require(tk.tables.w3_shift == 20,
             f"token words at shift {tk.tables.w3_shift}, not 20")
-    print(f"route {vocab.last_route}, launches {launches}, last_mode "
-          f"{tk.last_mode}, fallbacks {tk.fallbacks}, dispatches "
+    print(f"route {vocab.last_route}, launches {launches} (the first call "
+          f"of its geometry: the warm-up before the capture, then the "
+          f"replay), captures {tk.captures}, last_mode {tk.last_mode}, "
+          f"fallbacks {tk.fallbacks}, dispatches "
           f"{len(tk._plan(len(norm))[1])}")
     ids32 = np.asarray(ids, np.uint32)
     require(np.array_equal(ids32, want), "ids differ from native")
@@ -2185,6 +2377,8 @@ def main() -> int:
     nat_s = statistics.median(nat)
     print(f"native: {len(norm) / nat_s / 1e6:.3f} MB/s over {len(norm)} "
           f"normalized bytes, {os.cpu_count()} host threads [{card}]")
+    phase("main tokenizer: the captured chain against eager")
+    CAPTURED["main"] = captured_chain_phase(card, "main", vocab, raw, want)
 
     import shutil
     import tempfile
@@ -2223,7 +2417,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms,
                       "launch_floor_device_ms": floor_device_ms,
-                      "not_kernels": [device_sort]}))
+                      "not_kernels": [device_sort],
+                      "captured_chain": CAPTURED}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

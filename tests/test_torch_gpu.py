@@ -10,6 +10,8 @@ card has none.
 
 import ctypes
 import os
+from contextlib import nullcontext
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -539,7 +541,8 @@ def test_kernels_on_masked_tables_equal_plain(trainer):
     """One 512-lane dispatch of text with bytes the candidate lacks."""
     sc, cand, data = trainer
     tk = sc._sup.tokenizer
-    _n, lanes, bufs = tk.stage(data[:(LANES - 1) * CHUNK + MARGIN])
+    staged = tk.stage(data[:(LANES - 1) * CHUNK + MARGIN])
+    lanes, bufs = staged.lanes, staged.bufs
     assert lanes == LANES
     buf, n, _last = bufs[0]
     tabs = candidate_runtime_state(sc._sup, cand)
@@ -585,7 +588,7 @@ def test_zero_advance_step_on_card(cuda):
     sc.prepare(ZERO_STEP_TOKENS)
     cand = sc.build(ZERO_STEP_TOKENS)
     tk = sc._sup.tokenizer
-    _n, _lanes, bufs = tk.stage(ZERO_STEP_TEXT)
+    bufs = tk.stage(ZERO_STEP_TEXT).bufs
     buf, n, _last = bufs[0]
     tabs = candidate_runtime_state(sc._sup, cand)
     m, mb = match(buf, n, tabs)
@@ -667,7 +670,7 @@ def test_remap_scorer_on_card_equals_native(trainer, monkeypatch, how):
     assert sc._sup.tokenizer.tables.idx1_bits == (24 if how == "fields24"
                                                   else 16)
     tk = sc._sup.tokenizer
-    _n, _lanes, bufs = tk.stage(data[:(LANES - 1) * CHUNK + MARGIN])
+    bufs = tk.stage(data[:(LANES - 1) * CHUNK + MARGIN]).bufs
     buf, n, _last = bufs[0]
     tabs = candidate_runtime_state(sc._sup, cand)
     assert tabs.meta.shape[1] == tables.meta_width(len(cand.tokens))
@@ -812,3 +815,131 @@ def test_two_processes_on_one_card(cuda, tmp_path):
     for name in names:
         assert ((tmp_path / "results" / name).read_bytes()
                 == (tmp_path / "native" / name).read_bytes())
+
+
+def _both_paths(tk, data):
+    """(captured, eager) results of ``tk.tokenize_staged`` on ``data`` and
+    the launches per kernel of each, the captured path's counted on a
+    replay (its geometry captured before); the eager path is the same
+    call with ``_run_captured`` replaced by the chain op by op."""
+    staged = tk.stage(data)
+    tk.tokenize_staged(staged, data)
+    runs = []
+    for eager in (False, True):
+        _build.reset_launches()
+        with mock.patch.object(tk, "_run_captured", tk._run_eager) \
+                if eager else nullcontext():
+            res = tk.tokenize_staged(staged, data)
+        torch.cuda.synchronize()
+        runs.append((res, dict(_build.launches), tk.last_mode))
+    return runs
+
+
+@pytest.mark.parametrize("dispatches", [1, 5, 16, 17])
+def test_captured_chain_equals_eager(cuda, dispatches):
+    """The captured chain (graphs of up to 16 dispatches; 17 replays the
+    16-dispatch graph, then the 1-dispatch one, the record skip carried on
+    the card) equals the chain enqueued op by op bit for bit and native;
+    a replayed call launches each kernel as often as the eager one.
+    Lanes of 256 bytes keep the text of 17 dispatches near 2 MB."""
+    v = _real32k()
+    tk = GpuTokenizer(v, chunk=256, device=cuda)
+    raw, _dropped = stdlib_text(v, 3 << 20)
+    data = v.normalize(raw)[:(dispatches - 1) * (LANES - 1) * 256 + 100_000]
+    L, plan = tk._plan(len(data))
+    assert len(plan) == dispatches
+    (got, got_l, mode), (want, want_l, want_mode) = _both_paths(tk, data)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1] == 0 and mode == want_mode == "fast"
+    np.testing.assert_array_equal(got[0], NativeVocab(v).tokenize(data)[0])
+    assert got_l == want_l and got_l["match"] >= dispatches, got_l
+    keys = {(L, min(dispatches - g, 16), False)
+            for g in range(0, dispatches, 16)}
+    assert set(tk._graphs) == keys and tk.captures == len(keys)
+
+
+def test_captured_chain_full_window_retry(cuda):
+    """Dense text (a record a byte, the unk vocabulary's misses) overflows
+    the captured fast window; the full-window retry runs op by op behind
+    it: equal to the eager path and native."""
+    v = Vocab()
+    v._generate(tokens=[b"q", b"u", b"i", b"c", b"k", b"qu", b"ick"],
+                charset=1, normalize_string="none", using_capcode=0, level=5,
+                reset_token_ids=True)
+    assert v.enable_unk_token()
+    tk = GpuTokenizer(v, device=cuda)
+    data = (b"q\x01u\x02i\x03c\x04k\x05" * 120_000)[:1_100_000]
+    (got, got_l, mode), (want, want_l, want_mode) = _both_paths(tk, data)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1] > 0 and mode == want_mode == "full"
+    np.testing.assert_array_equal(got[0], NativeVocab(v).tokenize(data)[0])
+    assert got_l == want_l, (got_l, want_l)
+
+
+def test_captured_chain_junction_repair(cuda):
+    """A junction whose lanes share no state (a run of "a" after an "x",
+    tokens "aa", "a", "x") through two dispatches: the captured run does
+    not hold, and the repair runs op by op from its record grids; equal
+    to the eager path and native, with the same repairs and launches."""
+    v = Vocab()
+    v._generate(tokens=[b"aa", b"a", b"x"], charset=1,
+                normalize_string="none", using_capcode=2, level=5,
+                reset_token_ids=True)
+    tk = GpuTokenizer(v, device=cuda)
+    data = b"x" + b"a" * ((LANES - 1) * CHUNK + 70000) + b"xaaxa" * 20
+    before = tk.repairs
+    (got, got_l, _m), (want, want_l, _w) = _both_paths(tk, data)
+    repairs = tk.repairs - before
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[0], NativeVocab(v).tokenize(data)[0])
+    assert repairs % 3 == 0 and 6 <= repairs <= 90   # three calls
+    assert got_l == want_l and tk.host_fallbacks == 0
+
+
+def test_replays_count_their_launches_and_reuse_one_capture(cuda):
+    """Texts of several lengths with the same number of dispatches share
+    one capture; every replayed call counts one launch of each kernel a
+    dispatch, as the eager chain does, and the first call of the geometry
+    also counts its warm-up (the chain once, op by op)."""
+    v = _real32k()
+    tk = GpuTokenizer(v, device=cuda)
+    raw, _dropped = stdlib_text(v, 5 << 20)
+    text = v.normalize(raw)
+    nv = NativeVocab(v)
+    per_call = []
+    for size in (2_200_000, 2_500_000, 3_100_000):
+        data = text[:size]
+        assert len(tk._plan(len(data))[1]) == 3
+        _build.reset_launches()
+        ids, _missing = tk.tokenize(data)
+        torch.cuda.synchronize()
+        per_call.append(dict(_build.launches))
+        np.testing.assert_array_equal(ids, nv.tokenize(data)[0])
+    assert tk.captures == 1
+    assert per_call[0] == {k: 6 for k in _build.KERNELS}, per_call
+    assert per_call[1] == per_call[2] == {k: 3 for k in _build.KERNELS}
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A chain that syncs inside the capture cannot be captured: the call
+    raises, nothing is kept, nothing runs op by op in its place."""
+    v = _real32k()
+    tk = GpuTokenizer(v, device=cuda)
+    raw, _dropped = stdlib_text(v, 1 << 20)
+    data = v.normalize(raw)
+    compact = tk._compact
+
+    def syncing(*args):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return compact(*args)
+    monkeypatch.setattr(tk, "_compact", syncing)
+    tk.last_mode = None
+    with pytest.raises(RuntimeError):
+        tk.tokenize(data)
+    assert tk.captures == 0 and tk.last_mode is None
+    monkeypatch.setattr(tk, "_compact", compact)
+    torch.cuda.synchronize()
+    ids, _missing = tk.tokenize(data)
+    np.testing.assert_array_equal(ids, NativeVocab(v).tokenize(data)[0])
+    assert tk.captures == 1

@@ -52,6 +52,7 @@ def host_lib(tmp_path_factory):
     lib.tm_decide_tile.restype = ctypes.c_int
     lib.tm_follow_word_bytes.argtypes = [ctypes.POINTER(_build.FollowArgs)]
     lib.tm_match_hit_word.argtypes = [ctypes.c_int] * 3
+    lib.tm_args_layout.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     return lib
 
 
@@ -137,11 +138,12 @@ def _decide_host(lib, dt, buf, n, m, mb, tile=None):
     N = buf.numel()
     got_c = torch.full((rows, N), -1, dtype=torch.int32)
     got_t = torch.full((rows, N), -1, dtype=torch.int32)
+    n_t = _build.scalar_arg(n, "n", N, buf.device)
     args = _build.DecideArgs(
         m=m.data_ptr(), mb=(mb if mb is not None else m).data_ptr(),
         text=buf.data_ptr(), entries=dt.entries.data_ptr(),
         bb=dt.bb.data_ptr(), ctl=got_c.data_ptr(), tok=got_t.data_ptr(),
-        N=N, n_entries=dt.entries.shape[1], n=n,
+        n=n_t.data_ptr(), N=N, n_entries=dt.entries.shape[1],
         has_delete=int(dt.has_delete), has_unk=int(dt.has_unk),
         unk_token=dt.unk_token, lil_off=dt.lil_off, w3_shift=dt.w3_shift)
     lib.tm_decide_host(ctypes.byref(args), tile or lib.tm_decide_tile())
@@ -215,12 +217,13 @@ def _follow_host(lib, ctl, tok, n, chunk, L, t_rec, tw=None,
     recs = torch.full((t_rec, L), -1, dtype=torch.int32)
     toks = torch.full((t_rec, L), -1, dtype=torch.int32)
     done = torch.ones(1, dtype=torch.int32)
+    n_t = _build.scalar_arg(n, "n", ctl.shape[-1], ctl.device)
     args = _build.FollowArgs(
         ctl=ctl.data_ptr(), tok=tok.data_ptr(), recs=recs.data_ptr(),
-        toks=toks.data_ptr(), done_all=done.data_ptr(), N=ctl.shape[-1],
-        rows=1 if ctl.dim() == 1 else ctl.shape[0], n=n, chunk=chunk,
-        overlap=OVERLAP, W=window(chunk, OVERLAP), L=L, t_rec=t_rec,
-        w3_shift=w3_shift)
+        toks=toks.data_ptr(), done_all=done.data_ptr(), n=n_t.data_ptr(),
+        N=ctl.shape[-1], rows=1 if ctl.dim() == 1 else ctl.shape[0],
+        chunk=chunk, overlap=OVERLAP, W=window(chunk, OVERLAP), L=L,
+        t_rec=t_rec, w3_shift=w3_shift)
     lib.tm_follow_host(ctypes.byref(args), tw or args.W)
     return recs, toks, done[0]
 
@@ -464,3 +467,52 @@ def test_decide_host_at_s22_equals_plain(host_lib):
     assert torch.equal(got_t.reshape(tok.shape), tok)
     t = tok.long()
     assert (t >> 22 == 3).any() and ((t & ((1 << 22) - 1)) >= 1 << 21).any()
+
+
+def test_argument_structs_match_their_ctypes_mirrors(host_lib):
+    """Every argument struct's size and every field's offset, as g++ lays
+    out csrc/tm_kernels.cuh, equal its ctypes mirror's in ops/_build.py:
+    the device-scalar pointer ``n`` of match, decide and follow among
+    them."""
+    structs = (_build.MatchArgs, _build.DecideArgs, _build.FollowArgs,
+               _build.CompactArgs)
+    want = []
+    for st in structs:
+        want += [ctypes.sizeof(st)] + [getattr(st, f).offset
+                                       for f, _t in st._fields_]
+    got = (ctypes.c_int64 * 256)()
+    count = host_lib.tm_args_layout(got)
+    assert list(got[:count]) == want
+    for st in structs[:3]:
+        assert dict(st._fields_)["n"] is ctypes.c_void_p
+
+
+def test_stages_read_n_from_dispatch_scalars(host_lib, stages):
+    """match, decide and follow of the kernels' code read ``n`` through
+    the pointer, from a row of a dispatch-scalar array (n, last lane,
+    final) as ``GpuTokenizer.stage`` builds one: for each of three
+    dispatches' n, their outputs equal the plain versions given that
+    0-dim tensor, and differ from one n to the next."""
+    _name, dt, buf, n, _m, _mb, _ctl, _tok = stages
+    scalars = torch.tensor([[n, 40, 0], [n - 333, 20, 0], [n // 3, 5, 1]],
+                           dtype=torch.int32)
+    seen = []
+    for d in range(3):
+        nd = scalars[d, 0]
+        mm = match_plain(buf, nd, dt)
+        m, mb = mm if dt.has_space else (mm, None)
+        got_m, got_mb = _match_host(host_lib, dt, buf, nd, 61)
+        assert torch.equal(got_m, m)
+        if mb is not None:
+            assert torch.equal(got_mb, mb)
+        ctl, tok = decide_plain(m, mb, buf, nd, dt)
+        got_c, got_t = _decide_host(host_lib, dt, buf, nd, m, mb, 37)
+        assert torch.equal(got_c.reshape(ctl.shape), ctl)
+        assert torch.equal(got_t.reshape(tok.shape), tok)
+        want = follow_plain(ctl, tok, nd, 32, 128, OVERLAP, 256)
+        got = _follow_host(host_lib, ctl, tok, nd, 32, 128, 256, 7)
+        for w, g in zip(want, got):
+            assert torch.equal(g, w)
+        seen.append(want[0])
+    assert not torch.equal(seen[0], seen[1])
+    assert not torch.equal(seen[1], seen[2])

@@ -156,7 +156,8 @@ def test_splice_past_the_first_16_records():
     nids, nmiss = native_ids(v, data)
     np.testing.assert_array_equal(ids, nids)
     assert missing == nmiss == 0
-    _n, lanes, bufs = tk.stage(data)
+    staged = tk.stage(data)
+    lanes, bufs = staged.lanes, staged.bufs
     buf, n, last_lane = bufs[0]
     ctl, tok = decide(match(buf, n, tk.tables), None, buf, n, tk.tables)
     recs, _toks, _done = follow(ctl, tok, n, 256, lanes, OVERLAP_SCAN,

@@ -28,11 +28,11 @@ def main_dispatch(vocab, raw: bytes, device, chunk: int = 2048,
     it.  Returns (tokenizer, buffer uint8 [N], n)."""
     tk = GpuTokenizer(vocab, chunk=chunk, device=device)
     data = vocab.normalize(raw)[:(lanes - 1) * chunk + MARGIN]
-    _n, got_lanes, bufs = tk.stage(data)
-    if got_lanes != lanes:
-        raise ValueError(f"{len(data)} bytes stage {got_lanes} lanes, not "
-                         f"{lanes}")
-    buf, n, _last = bufs[0]
+    staged = tk.stage(data)
+    if staged.lanes != lanes:
+        raise ValueError(f"{len(data)} bytes stage {staged.lanes} lanes, "
+                         f"not {lanes}")
+    buf, n, _last = staged.bufs[0]
     return tk, buf, n
 
 

@@ -11,6 +11,7 @@
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libtm_host.so tm_host.cpp
 #include <algorithm>
+#include <cstddef>
 #include <vector>
 
 #include "tm_kernels.cuh"
@@ -122,6 +123,41 @@ int tm_compact_tile(int* recs, int* zero) {
   *recs = tmk::COMPACT_RECS;
   *zero = tmk::COMPACT_ZERO;
   return tmk::COMPACT_LANES;
+}
+
+// The layout of the argument structs, for the check of their ctypes
+// mirrors (ops/_build.py): per struct its size, then each field's offset
+// in declaration order.  Returns the number of values written.
+int tm_args_layout(int64_t* out) {
+#define TM_OFF(S, f) (int64_t) offsetof(tmk::S, f)
+  const int64_t v[] = {
+      (int64_t)sizeof(tmk::MatchArgs), TM_OFF(MatchArgs, text), TM_OFF(MatchArgs, fields),
+      TM_OFF(MatchArgs, disp), TM_OFF(MatchArgs, single), TM_OFF(MatchArgs, space_single),
+      TM_OFF(MatchArgs, scalars), TM_OFF(MatchArgs, desc), TM_OFF(MatchArgs, len_cls),
+      TM_OFF(MatchArgs, ovf_keys), TM_OFF(MatchArgs, m), TM_OFF(MatchArgs, mb), TM_OFF(MatchArgs, n),
+      TM_OFF(MatchArgs, N), TM_OFF(MatchArgs, max_len), TM_OFF(MatchArgs, idx1_bits),
+      TM_OFF(MatchArgs, has_space), TM_OFF(MatchArgs, lil_off), TM_OFF(MatchArgs, filt),
+      TM_OFF(MatchArgs, filt_log2), TM_OFF(MatchArgs, n_cls), TM_OFF(MatchArgs, disp_words),
+      TM_OFF(MatchArgs, pad_),
+      (int64_t)sizeof(tmk::DecideArgs), TM_OFF(DecideArgs, m), TM_OFF(DecideArgs, mb),
+      TM_OFF(DecideArgs, text), TM_OFF(DecideArgs, entries), TM_OFF(DecideArgs, bb),
+      TM_OFF(DecideArgs, ctl), TM_OFF(DecideArgs, tok), TM_OFF(DecideArgs, n), TM_OFF(DecideArgs, N),
+      TM_OFF(DecideArgs, n_entries), TM_OFF(DecideArgs, has_delete), TM_OFF(DecideArgs, has_unk),
+      TM_OFF(DecideArgs, unk_token), TM_OFF(DecideArgs, lil_off), TM_OFF(DecideArgs, w3_shift),
+      TM_OFF(DecideArgs, pad_),
+      (int64_t)sizeof(tmk::FollowArgs), TM_OFF(FollowArgs, ctl), TM_OFF(FollowArgs, tok),
+      TM_OFF(FollowArgs, recs), TM_OFF(FollowArgs, toks), TM_OFF(FollowArgs, done_all),
+      TM_OFF(FollowArgs, n), TM_OFF(FollowArgs, N), TM_OFF(FollowArgs, rows), TM_OFF(FollowArgs, chunk),
+      TM_OFF(FollowArgs, overlap), TM_OFF(FollowArgs, W), TM_OFF(FollowArgs, L),
+      TM_OFF(FollowArgs, t_rec), TM_OFF(FollowArgs, w3_shift), TM_OFF(FollowArgs, pad_),
+      (int64_t)sizeof(tmk::CompactArgs), TM_OFF(CompactArgs, recs), TM_OFF(CompactArgs, toks),
+      TM_OFF(CompactArgs, s), TM_OFF(CompactArgs, e), TM_OFF(CompactArgs, q), TM_OFF(CompactArgs, out),
+      TM_OFF(CompactArgs, out_len), TM_OFF(CompactArgs, T), TM_OFF(CompactArgs, L),
+      TM_OFF(CompactArgs, w3_shift), TM_OFF(CompactArgs, pad_)};
+#undef TM_OFF
+  const int count = (int)(sizeof(v) / sizeof(v[0]));
+  for (int i = 0; i < count; ++i) out[i] = v[i];
+  return count;
 }
 
 }  // extern "C"

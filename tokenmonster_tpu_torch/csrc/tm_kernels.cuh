@@ -24,7 +24,11 @@
 // the format's 24-bit ids), so a match word fits 30 bits.
 //
 // The argument structs are mirrored field for field by ctypes.Structure
-// classes in ops/_build.py; change both together.
+// classes in ops/_build.py; change both together.  A dispatch's valid byte
+// count ``n`` is a pointer to a device int32 (ops/scan.py keeps each
+// dispatch's n, last lane and final flag in one small device array), so a
+// captured CUDA graph serves texts of every length: only the geometry
+// (buffer length N, lanes, chunk, record rows) is fixed at launch.
 #pragma once
 #include <stdint.h>
 
@@ -89,20 +93,19 @@ struct MatchArgs {
   const uint8_t* ovf_keys;
   uint32_t* m;
   uint32_t* mb;                 // written only when has_space
+  const int32_t* n;             // valid bytes, on the device (a dispatch's
+                                // scalar, ops/scan.py): matches end at or
+                                // before n
   int64_t N;                    // buffer length (positions computed)
-  int32_t n;                    // valid bytes; matches end at or before n
   int32_t max_len;
   int32_t idx1_bits;
   int32_t has_space;
   int32_t lil_off;
-  int32_t pad_;
-  // fields from here on are read by the shared-memory design only; the
-  // struct's head is the one-thread-per-position design's, unchanged
   const uint32_t* filt;         // key filter, 2^(filt_log2 - 5) words
   int32_t filt_log2;
   int32_t n_cls;                // rows of desc
   int32_t disp_words;           // length of disp
-  int32_t pad2_;
+  int32_t pad_;
 };
 
 struct DecideArgs {
@@ -114,14 +117,15 @@ struct DecideArgs {
   const int32_t* bb;            // (256,) begin-byte class, each below 256
   uint32_t* ctl;                // (rows, N)
   uint32_t* tok;
+  const int32_t* n;             // valid bytes, on the device
   int64_t N;
   int64_t n_entries;            // R*128
-  int32_t n;
   int32_t has_delete;
   int32_t has_unk;
   int32_t unk_token;
   int32_t lil_off;
   int32_t w3_shift;             // S: tok = idx | w3 << S
+  int32_t pad_;
 };
 
 struct FollowArgs {
@@ -130,15 +134,16 @@ struct FollowArgs {
   uint32_t* recs;               // (t_rec, L)
   uint32_t* toks;
   int32_t* done_all;            // set to 1 by the caller; lanes clear it
+  const int32_t* n;             // valid bytes, on the device
   int64_t N;
   int32_t rows;
-  int32_t n;
   int32_t chunk;
   int32_t overlap;
   int32_t W;                    // per-lane window (JAX kernel geometry)
   int32_t L;
   int32_t t_rec;
   int32_t w3_shift;             // S: token words keep their low S + 2 bits
+  int32_t pad_;
 };
 
 struct CompactArgs {
@@ -344,8 +349,9 @@ struct MatchState {
 TM_HD MatchState match_begin(const MatchArgs& a, const MatchTables& tb, uint64_t lengths,
                              const uint32_t* win, int32_t t, int64_t p) {
   MatchState st;
+  const int32_t n = TM_LDG(a.n);
   const uint32_t t0 = win_byte(win, t);
-  const bool fits1 = p + 1 <= a.n;
+  const bool fits1 = p + 1 <= n;
   st.best = st.bestb = 0;
   const int32_t s1 = tb.single[t0];
   if (s1 > 0 && fits1) st.best = ((s1 - 1) << 6) | 1;
@@ -359,7 +365,7 @@ TM_HD MatchState match_begin(const MatchArgs& a, const MatchTables& tb, uint64_t
   st.need_m = true;
   st.need_b = a.has_space != 0;
   // a hit needs p + l <= n, so no longer length can hit past that point
-  const int64_t room = (int64_t)a.n - p;
+  const int64_t room = (int64_t)n - p;
   const int32_t lmax = room < a.max_len ? (int32_t)(room < 0 ? 0 : room) : a.max_len;
   uint64_t cand = 0;
   uint32_t h = SEED;
@@ -637,7 +643,8 @@ TM_HD void decide_tile_at(const DecideArgs& a, const DecideNb* nb, int64_t p, in
   const bool found = mf != 0;
   // the byte after the match is the one after the token matched here
   const uint32_t here = fd ? nb[0].b : nb[0].a;
-  const bool do_eval = found && (p + cur_len < a.n) && !((o.w[0] & 1u) && ((here >> 10) & 1u));
+  const int32_t n = TM_LDG(a.n);
+  const bool do_eval = found && (p + cur_len < n) && !((o.w[0] & 1u) && ((here >> 10) & 1u));
   const int32_t n_first = do_eval ? 1 + (int32_t)((o.w[0] >> 1) & 3u) : 0;
   const int32_t first_len[3] = {cur_len, (int32_t)(o.w[1] >> 24), (int32_t)(o.w[2] >> 24)};
 
@@ -687,7 +694,7 @@ TM_HD void decide_tile_at(const DecideArgs& a, const DecideNb* nb, int64_t p, in
   const bool is_b = any_branch && w6 >= 3;
   const int32_t adv = w3 == 0 ? first_len[0] : (w3 == 1 ? first_len[1] : first_len[2]);
   const int32_t new_pos_rel = found ? (any_branch ? adv : cur_len) : 1;
-  const bool miss = !found && p < a.n;
+  const bool miss = !found && p < n;
   const bool has_tok = found || (miss && a.has_unk);
   // an alternative branch may advance 0 bytes: at fd = 1 one of length 1
   // is the virtual space alone (go/tokenmonster.go i += len1 - fd), and
@@ -728,7 +735,7 @@ struct FollowLane {
 TM_HD FollowLane follow_begin(const FollowArgs& a, int32_t lane) {
   FollowLane s;
   s.start = (int64_t)lane * a.chunk;
-  int64_t stop = (int64_t)a.n - s.start;
+  int64_t stop = (int64_t)TM_LDG(a.n) - s.start;
   const int64_t span = (int64_t)a.chunk + a.overlap;
   s.stop = (int32_t)(stop < -1 ? -1 : (stop > span ? span : stop));
   s.done = s.stop <= 0;

@@ -14,6 +14,7 @@ nvcc nor a card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,29 +36,31 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 
 
+# ``n``, a dispatch's valid byte count, is a pointer to a device int32
+# in each struct that reads it (``scalar_arg``).
 class MatchArgs(ctypes.Structure):
     _fields_ = [("text", _P), ("fields", _P), ("disp", _P), ("single", _P),
                 ("space_single", _P), ("scalars", _P), ("desc", _P),
                 ("len_cls", _P), ("ovf_keys", _P), ("m", _P), ("mb", _P),
-                ("N", _I64), ("n", _I32), ("max_len", _I32),
+                ("n", _P), ("N", _I64), ("max_len", _I32),
                 ("idx1_bits", _I32), ("has_space", _I32), ("lil_off", _I32),
-                ("pad_", _I32), ("filt", _P), ("filt_log2", _I32),
-                ("n_cls", _I32), ("disp_words", _I32), ("pad2_", _I32)]
+                ("filt", _P), ("filt_log2", _I32), ("n_cls", _I32),
+                ("disp_words", _I32), ("pad_", _I32)]
 
 
 class DecideArgs(ctypes.Structure):
     _fields_ = [("m", _P), ("mb", _P), ("text", _P), ("entries", _P),
-                ("bb", _P), ("ctl", _P), ("tok", _P), ("N", _I64),
-                ("n_entries", _I64), ("n", _I32), ("has_delete", _I32),
+                ("bb", _P), ("ctl", _P), ("tok", _P), ("n", _P),
+                ("N", _I64), ("n_entries", _I64), ("has_delete", _I32),
                 ("has_unk", _I32), ("unk_token", _I32), ("lil_off", _I32),
-                ("w3_shift", _I32)]
+                ("w3_shift", _I32), ("pad_", _I32)]
 
 
 class FollowArgs(ctypes.Structure):
     _fields_ = [("ctl", _P), ("tok", _P), ("recs", _P), ("toks", _P),
-                ("done_all", _P), ("N", _I64), ("rows", _I32), ("n", _I32),
+                ("done_all", _P), ("n", _P), ("N", _I64), ("rows", _I32),
                 ("chunk", _I32), ("overlap", _I32), ("W", _I32), ("L", _I32),
-                ("t_rec", _I32), ("w3_shift", _I32)]
+                ("t_rec", _I32), ("w3_shift", _I32), ("pad_", _I32)]
 
 
 class CompactArgs(ctypes.Structure):
@@ -71,12 +74,35 @@ KERNELS = ("match", "decide", "follow", "compact")
 # Launches of each kernel in this process.  A wrapper adds one where it
 # launches its kernel (launch() below) and nowhere else, so a caller can
 # show that a run went through the kernels: zero the counts, run, read.
+# A launch recorded into a CUDA graph runs nothing yet: it goes to the
+# capture's tally (``tally``), which each replay of the graph adds here
+# (``add_launches``).
 launches = dict.fromkeys(KERNELS, 0)
+_capture = threading.local()
 
 
 def reset_launches():
     for k in KERNELS:
         launches[k] = 0
+
+
+@contextlib.contextmanager
+def tally():
+    """Within the block, this thread's launches go to the dict it yields
+    instead of ``launches``: the per-kernel launches of a graph capture."""
+    counts = dict.fromkeys(KERNELS, 0)
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = None
+
+
+def add_launches(counts: dict) -> None:
+    """Count ``counts`` launches of each kernel: a graph's replay."""
+    with _count_lock:
+        for k, v in counts.items():
+            launches[k] += v
 
 
 def _sources():
@@ -178,8 +204,13 @@ def _launch(name: str, arg, device: torch.device) -> None:
 
 def launch(name: str, args: ctypes.Structure, device: torch.device) -> None:
     """Launch kernel ``name`` on ``device``'s current stream; raises if the
-    launch was refused.  Counts the launch."""
+    launch was refused.  Counts the launch, or, inside ``tally`` (a graph
+    capture), records it in the capture's tally."""
     _launch(name, ctypes.byref(args), device)
+    counts = getattr(_capture, "counts", None)
+    if counts is not None:
+        counts[name] += 1
+        return
     with _count_lock:              # scoring slots launch from threads
         launches[name] += 1
 
@@ -191,6 +222,20 @@ def spin(device: torch.device, cycles: int = 0) -> None:
     host can queue work behind it and time that work on the card alone.
     No kernel of the path: not counted."""
     _launch("spin", cycles, device)
+
+
+def scalar_arg(n, name: str, limit: int, device: torch.device):
+    """``n`` as the int32 device scalar a kernel reads through a pointer:
+    a tensor (a dispatch's scalar, ops/scan.py) is checked and passed as
+    it is, with no read-back; an int is checked against [0, ``limit``]
+    and written on ``device`` by a fill kernel, so no copy waits for the
+    stream.  The caller keeps the tensor alive until its launch."""
+    if isinstance(n, torch.Tensor):
+        check(n, name, torch.int32, device, ())
+        return n
+    if not 0 <= n <= limit:
+        raise ValueError(f"{name}={n} outside [0, {limit}]")
+    return torch.full((), n, dtype=torch.int32, device=device)
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,

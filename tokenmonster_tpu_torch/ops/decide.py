@@ -36,10 +36,11 @@ NEG = -1000000
 
 
 def decide_plain(m: torch.Tensor, mb: torch.Tensor | None,
-                 text: torch.Tensor, n: int, tabs: DeviceTables):
+                 text: torch.Tensor, n, tabs: DeviceTables):
     """PyTorch version of the decide kernel.  ``m``/``mb``: int32 [N] match
-    words (``mb`` None without a delete token); ``text``: uint8 [N].
-    Reads past N see zeros, as the JAX kernel's zero margin rows do."""
+    words (``mb`` None without a delete token); ``text``: uint8 [N]; ``n``:
+    an int or a 0-dim tensor.  Reads past N see zeros, as the JAX kernel's
+    zero margin rows do."""
     N = m.numel()
     dev = m.device
     S = tabs.w3_shift
@@ -149,12 +150,13 @@ def decide_plain(m: torch.Tensor, mb: torch.Tensor | None,
 
 
 def decide(m: torch.Tensor, mb: torch.Tensor | None, text: torch.Tensor,
-           n: int, tabs: DeviceTables):
+           n, tabs: DeviceTables):
     """(ctl, tok) for match words ``m``/``mb`` (int32 [N]; ``mb`` None
-    without a delete token) over ``text`` (uint8 [N]): the CUDA kernel for
+    without a delete token) over ``text`` (uint8 [N]), ``n`` valid bytes
+    (an int, or a 0-dim int32 tensor on their device): the CUDA kernel for
     CUDA tensors, the plain version for CPU ones."""
     N = m.numel()
-    if not 0 <= n <= N:
+    if not isinstance(n, torch.Tensor) and not 0 <= n <= N:
         raise ValueError(f"n={n} outside [0, {N}]")
     if (mb is None) == tabs.has_delete:
         raise ValueError("mb is required exactly for delete-token vocabs")
@@ -169,13 +171,14 @@ def decide(m: torch.Tensor, mb: torch.Tensor | None, text: torch.Tensor,
     _build.check(tabs.entries, "entries", torch.int32, dev,
                  (rows, tabs.entries.shape[1], 4))
     _build.check(tabs.bb, "bb", torch.int32, dev, (256,))
+    n_t = _build.scalar_arg(n, "n", N, dev)
     ctl = torch.empty((rows, N), dtype=torch.int32, device=dev)
     tok = torch.empty((rows, N), dtype=torch.int32, device=dev)
     args = _build.DecideArgs(
         m=m.data_ptr(), mb=(mb if mb is not None else m).data_ptr(),
         text=text.data_ptr(), entries=tabs.entries.data_ptr(),
         bb=tabs.bb.data_ptr(), ctl=ctl.data_ptr(), tok=tok.data_ptr(),
-        N=N, n_entries=tabs.entries.shape[1], n=n,
+        n=n_t.data_ptr(), N=N, n_entries=tabs.entries.shape[1],
         has_delete=int(tabs.has_delete),
         has_unk=int(tabs.has_unk), unk_token=tabs.unk_token,
         lil_off=tabs.lil_off, w3_shift=tabs.w3_shift)
@@ -185,22 +188,30 @@ def decide(m: torch.Tensor, mb: torch.Tensor | None, text: torch.Tensor,
     return ctl, tok
 
 
-def resolve_device(words: torch.Tensor, tabs: DeviceTables) -> torch.Tensor:
-    """Compacted token words to emitted ids, on the words' device: idx |
-    w3<<S (S the tables' ``w3_shift``) through ``ids3`` (w3 == 3 marks a
-    literal id), and the delete token spliced in after each word with
-    ``del_bit(S)``.  Port of
-    ``tokenmonster_tpu/ops/pallas_decide.py::resolve_tokens``; int64 out."""
+def resolve_words(words: torch.Tensor, tabs: DeviceTables) -> torch.Tensor:
+    """The id each compacted token word emits, on the words' device: idx |
+    w3<<S (S the tables' ``w3_shift``) through ``ids3``, w3 == 3 marking a
+    literal id; the delete marker ``del_bit(S)`` is not read.  int64 out,
+    one id a word."""
     S = tabs.w3_shift
     w = words.long()
     idx = w & ((1 << S) - 1)
     w3 = (w >> S) & 3
     flat = tabs.ids3.long().reshape(-1) & 0xFFFFFFFF
     res = flat[(idx * 3 + w3.clamp(max=2)).clamp(max=flat.numel() - 1)]
-    res = torch.where(w3 == 3, idx, res)
+    return torch.where(w3 == 3, idx, res)
+
+
+def resolve_device(words: torch.Tensor, tabs: DeviceTables) -> torch.Tensor:
+    """Compacted token words to emitted ids, on the words' device:
+    ``resolve_words``, and the delete token spliced in after each word
+    with ``del_bit(S)`` (a boolean index, which reads its count back to
+    the host).  Port of
+    ``tokenmonster_tpu/ops/pallas_decide.py::resolve_tokens``; int64 out."""
+    res = resolve_words(words, tabs)
     if not tabs.has_delete:
         return res
-    dele = (w & del_bit(S)) != 0
+    dele = (words.long() & del_bit(tabs.w3_shift)) != 0
     pair = torch.stack([res, torch.full_like(res, tabs.delete_token)], 1)
     keep = torch.stack([torch.ones_like(dele), dele], 1)
     return pair[keep]

@@ -35,12 +35,12 @@ def window(chunk: int, overlap: int) -> int:
     return -(-(chunk + overlap + 128) // 128) * 128
 
 
-def follow_plain(ctl: torch.Tensor, tok: torch.Tensor, n: int, chunk: int,
+def follow_plain(ctl: torch.Tensor, tok: torch.Tensor, n, chunk: int,
                  n_lanes: int, overlap: int, t_rec: int,
                  w3_shift: int = W3_SHIFT):
     """PyTorch version of the follow kernel.  ``ctl``/``tok``: int32 (N,)
-    or (2, N).  Returns (recs, toks) int32 (t_rec, n_lanes) and done_all
-    int32 scalar."""
+    or (2, N); ``n``: an int or a 0-dim tensor.  Returns (recs, toks)
+    int32 (t_rec, n_lanes) and done_all int32 scalar."""
     dev = ctl.device
     rows = 1 if ctl.dim() == 1 else ctl.shape[0]
     N = ctl.shape[-1]
@@ -77,13 +77,14 @@ def follow_plain(ctl: torch.Tensor, tok: torch.Tensor, n: int, chunk: int,
     return recs.to(torch.int32), toks.to(torch.int32), done_all
 
 
-def follow(ctl: torch.Tensor, tok: torch.Tensor, n: int, chunk: int,
+def follow(ctl: torch.Tensor, tok: torch.Tensor, n, chunk: int,
            n_lanes: int, overlap: int, t_rec: int, w3_shift: int = W3_SHIFT):
     """Per-lane record and token streams: the CUDA kernel for CUDA
-    tensors, the plain version for CPU ones.  ``w3_shift``: the tables'
+    tensors, the plain version for CPU ones.  ``n``: valid bytes, an int
+    or a 0-dim int32 tensor on their device; ``w3_shift``: the tables'
     S, which sets how many bits of each token word follow keeps."""
     N = ctl.shape[-1]
-    if not 0 <= n <= N:
+    if not isinstance(n, torch.Tensor) and not 0 <= n <= N:
         raise ValueError(f"n={n} outside [0, {N}]")
     if ctl.dim() not in (1, 2) or (ctl.dim() == 2 and ctl.shape[0] > 2):
         raise ValueError(f"ctl: shape {tuple(ctl.shape)}, expected (N,) "
@@ -95,13 +96,14 @@ def follow(ctl: torch.Tensor, tok: torch.Tensor, n: int, chunk: int,
     dev = ctl.device
     _build.check(ctl, "ctl", torch.int32, dev)
     _build.check(tok, "tok", torch.int32, dev, tuple(ctl.shape))
+    n_t = _build.scalar_arg(n, "n", N, dev)
     recs = torch.empty((t_rec, n_lanes), dtype=torch.int32, device=dev)
     toks = torch.empty_like(recs)
     done = torch.ones(1, dtype=torch.int32, device=dev)
     args = _build.FollowArgs(
         ctl=ctl.data_ptr(), tok=tok.data_ptr(), recs=recs.data_ptr(),
-        toks=toks.data_ptr(), done_all=done.data_ptr(), N=N,
-        rows=1 if ctl.dim() == 1 else ctl.shape[0], n=n, chunk=chunk,
+        toks=toks.data_ptr(), done_all=done.data_ptr(), n=n_t.data_ptr(),
+        N=N, rows=1 if ctl.dim() == 1 else ctl.shape[0], chunk=chunk,
         overlap=overlap, W=window(chunk, overlap), L=n_lanes, t_rec=t_rec,
         w3_shift=w3_shift)
     _build.launch("follow", args, dev)

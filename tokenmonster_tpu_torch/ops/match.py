@@ -33,10 +33,10 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + (hi << 16)) & M32
 
 
-def match_plain(text: torch.Tensor, n: int, tabs: DeviceTables):
-    """PyTorch version of the match kernel.  ``text``: uint8 [N].  Returns
-    int32 [N] M, or (M, Mb) when the tables carry the space-stripped
-    entries."""
+def match_plain(text: torch.Tensor, n, tabs: DeviceTables):
+    """PyTorch version of the match kernel.  ``text``: uint8 [N]; ``n``:
+    an int or a 0-dim tensor.  Returns int32 [N] M, or (M, Mb) when the
+    tables carry the space-stripped entries."""
     N = text.numel()
     dev = text.device
     has_space = tabs.has_space
@@ -145,11 +145,12 @@ def match_plain(text: torch.Tensor, n: int, tabs: DeviceTables):
     return best.to(torch.int32)
 
 
-def match(text: torch.Tensor, n: int, tabs: DeviceTables):
-    """M (and Mb) for ``text`` (uint8 [N], valid bytes ``n``): the CUDA
+def match(text: torch.Tensor, n, tabs: DeviceTables):
+    """M (and Mb) for ``text`` (uint8 [N], valid bytes ``n``: an int, or
+    a 0-dim int32 tensor on the text's device, read there): the CUDA
     kernel for a CUDA tensor, the plain version for a CPU one.  Outputs
     are int32 holding the u32 words."""
-    if not 0 <= n <= text.numel():
+    if not isinstance(n, torch.Tensor) and not 0 <= n <= text.numel():
         raise ValueError(f"n={n} outside [0, {text.numel()}]")
     if text.device.type == "cpu":
         return match_plain(text, n, tabs)
@@ -168,23 +169,28 @@ def match(text: torch.Tensor, n: int, tabs: DeviceTables):
     return (m, mb) if tabs.has_space else m
 
 
-def match_args(text: torch.Tensor, n: int, tabs: DeviceTables,
+def match_args(text: torch.Tensor, n, tabs: DeviceTables,
                m: torch.Tensor, mb: torch.Tensor) -> _build.MatchArgs:
-    """The kernel's argument struct for these tensors, each checked."""
+    """The kernel's argument struct for these tensors, each checked;
+    ``n`` as ``match`` takes it.  The struct holds its scalar ``n`` alive
+    (``keep``)."""
     dev, N = text.device, text.numel()
     for name in ("fields", "disp", "single", "space_single", "scalars",
                  "desc", "len_cls", "filt"):
         _build.check(getattr(tabs, name), name, torch.int32, dev)
     _build.check(tabs.ovf_keys, "ovf_keys", torch.uint8, dev)
-    return _build.MatchArgs(
+    n_t = _build.scalar_arg(n, "n", N, dev)
+    args = _build.MatchArgs(
         text=text.data_ptr(), fields=tabs.fields.data_ptr(),
         disp=tabs.disp.data_ptr(), single=tabs.single.data_ptr(),
         space_single=tabs.space_single.data_ptr(),
         scalars=tabs.scalars.data_ptr(), desc=tabs.desc.data_ptr(),
         len_cls=tabs.len_cls.data_ptr(), ovf_keys=tabs.ovf_keys.data_ptr(),
-        m=m.data_ptr(), mb=mb.data_ptr(), N=N, n=n, max_len=tabs.max_len,
-        idx1_bits=tabs.idx1_bits, has_space=int(tabs.has_space),
-        lil_off=tabs.lil_off, filt=tabs.filt.data_ptr(),
-        filt_log2=tabs.filt_log2, n_cls=tabs.desc.shape[0],
-        disp_words=tabs.disp.numel())
+        m=m.data_ptr(), mb=mb.data_ptr(), n=n_t.data_ptr(), N=N,
+        max_len=tabs.max_len, idx1_bits=tabs.idx1_bits,
+        has_space=int(tabs.has_space), lil_off=tabs.lil_off,
+        filt=tabs.filt.data_ptr(), filt_log2=tabs.filt_log2,
+        n_cls=tabs.desc.shape[0], disp_words=tabs.disp.numel())
+    args.keep = n_t
+    return args
 

@@ -7,8 +7,20 @@ stitcher.  Text is cut into fixed-geometry dispatches of up to
 state (start, fd = 0) and scans ``OVERLAP_SCAN`` bytes past its chunk, and
 neighbouring lanes splice at their first shared (position, fd) state
 (ops/stitch.py).  Dispatches chain through a bridge lane, carrying the
-record skip ``start_next`` on the device, so a whole text is enqueued with
-no host sync; the host reads the per-dispatch counts once at the end.
+record skip ``start_next`` on the device.  Each dispatch's valid bytes,
+last owned lane and final flag sit in one small int32 device array
+(``Staged.scalars``), which the kernels and the stitch read on the device,
+so the work a dispatch enqueues depends on its geometry alone.
+
+On a card the chain of up to ``MAX_FUSED_DISPATCHES`` dispatches and its
+finishing (``ops/finish.py``: the device concat at running offsets, ids
+resolved and narrowed, the delete bitmask) is captured once per geometry
+(lanes, dispatches, record window) as a CUDA graph and replayed for every
+text of that geometry, the counterpart of the JAX package's jitted chain
+(``TpuTokenizer._chain_fn``); a longer text replays it group by group,
+the record skip carried on the device.  The host reads the metadata of
+the whole text in one copy, then downloads the narrowed ids, sized by
+the counts, into pinned memory.  CPU tensors take the same chain op by op.
 
 A dispatch that overflows the fast record window retries once with the
 full window, which cannot overflow: it holds one record per scanned byte,
@@ -31,13 +43,15 @@ is a kernel fault and raises.
 from __future__ import annotations
 
 import logging
+import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..native import NativeVocab
-from . import _build
-from .decide import decide, resolve_device
+from . import _build, finish
+from .decide import decide
 from .follow import follow
 from .match import match
 from .stitch import device_stitch_compact, restart_point
@@ -50,6 +64,8 @@ MARGIN = 512        # real-data lookahead past a dispatch's exact region:
                     # end and its matches need up to 2*max_token_length more
 GRAIN = 2048        # dispatch buffers round up to the JAX kernels' tile
                     # grain, so each stage sees the N the JAX engine sees
+MAX_FUSED_DISPATCHES = 16   # dispatches in one captured graph (the JAX
+                            # package's chain length of one jitted call)
 
 _log = logging.getLogger(__name__)
 
@@ -70,6 +86,83 @@ def remap_matches(m: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     a gather, which the JAX package does outside its kernels too."""
     ranked = (rank.index_select(0, m >> 6) << 6) | (m & 63)
     return torch.where(m == 0, m, ranked)
+
+
+class Staged(NamedTuple):
+    """A text staged on a device (``GpuTokenizer.stage``): its length,
+    lanes a dispatch, per dispatch (buffer uint8 [N], valid bytes n, last
+    owned lane) with the host's copies of the scalars, the buffers as one
+    (k, N) uint8 tensor, and the scalars the device reads: int32 (k, 3)
+    rows of (n, last owned lane, 1 for the text's last dispatch else 0)."""
+    n: int
+    lanes: int
+    bufs: list
+    text: torch.Tensor
+    scalars: torch.Tensor
+
+
+class _Graph:
+    """The captured chain of one geometry: static inputs (text buffers,
+    scalars, the record skip into the first dispatch), the graph, its
+    outputs, and the launches of each kernel one replay runs."""
+
+    def __init__(self, k: int, width: int, device: torch.device):
+        self.text = torch.zeros((k, width), dtype=torch.uint8, device=device)
+        self.scalars = torch.zeros((k, 3), dtype=torch.int32, device=device)
+        self.start0 = torch.zeros((), dtype=torch.int64, device=device)
+        self.graph = None
+        self.outputs = None
+        self.launches = None
+
+    def load(self, staged: Staged, g0: int, start0) -> None:
+        """Copy dispatches [g0, g0 + k) of ``staged`` into the inputs, on
+        the current stream; ``start0``: the record skip into the first
+        (None: 0)."""
+        k = self.text.shape[0]
+        self.text.copy_(staged.text[g0:g0 + k])
+        self.scalars.copy_(staged.scalars[g0:g0 + k])
+        if start0 is None:
+            self.start0.zero_()
+        else:
+            self.start0.copy_(start0)
+
+    def capture(self, body, stream: torch.cuda.Stream) -> None:
+        """Warm up ``body(text, scalars, start0)`` once on ``stream`` (what
+        runs before a capture, as PyTorch asks: kernel attributes set, the
+        library loaded, memory pooled), then capture it there.  The
+        warm-up's launches count; the capture's go to ``launches``, which
+        each replay counts.  A failed capture raises."""
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            body(self.text, self.scalars, self.start0)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: a scoring slot's thread may use the card meanwhile
+        with _build.tally() as counts, torch.cuda.graph(
+                graph, stream=stream, capture_error_mode="thread_local"):
+            outputs = body(self.text, self.scalars, self.start0)
+        self.graph, self.outputs, self.launches = graph, outputs, counts
+
+    def replay(self):
+        """Run the captured chain on the current stream; its outputs."""
+        self.graph.replay()
+        _build.add_launches(self.launches)
+        return self.outputs
+
+
+def _recording(epilogue, grids: list):
+    """``epilogue`` that also keeps each dispatch's record grid and record
+    skip, (recs, start0), in ``grids``."""
+    def recording(recs, toks, buf, start0, last_lane, final):
+        grids.append((recs, start0))
+        return epilogue(recs, toks, buf, start0, last_lane, final)
+    return recording
+
+
+def _held_flags(meta: np.ndarray) -> np.ndarray:
+    """Per dispatch of a (5, k) metadata array (``finish.META_ROWS``),
+    whether every lane finished and every junction held: (k, 2) bool."""
+    return meta[[4, 3]].T != 0
 
 
 def check_device(device) -> torch.device:
@@ -93,8 +186,9 @@ class GpuTokenizer:
     last call took; ``fallbacks`` counts, by cause (only "missing_byte"
     since junctions are repaired on the device), the texts the device path
     handed to the native tokenizer, and ``host_fallbacks`` is their total;
-    ``repairs`` counts the junctions repaired on the device.  ``hashmatch_tables`` (a numpy
-    match-table placement of ``vocab``, this package's or the JAX
+    ``repairs`` counts the junctions repaired on the device; ``captures``
+    the chain geometries captured as CUDA graphs.  ``hashmatch_tables`` (a
+    numpy match-table placement of ``vocab``, this package's or the JAX
     package's) shares one placement build; None builds it here."""
 
     def __init__(self, vocab, chunk: int = 2048, device="cuda",
@@ -107,10 +201,19 @@ class GpuTokenizer:
         self.last_mode = None
         self.fallbacks = {"missing_byte": 0}
         self.repairs = 0
+        self.wide_ids = len(vocab.reverse) > finish.NARROW_IDS
+        self._graphs = {}
+        self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                        else None)     # the captures' side stream
+        self._lock = threading.Lock()
 
     @property
     def launches(self) -> dict:
         return dict(_build.launches)
+
+    @property
+    def captures(self) -> int:
+        return len(self._graphs)
 
     @property
     def host_fallbacks(self) -> int:
@@ -143,28 +246,41 @@ class GpuTokenizer:
             plan.append((off, exact, -(-exact // chunk) - 1))
         return MAX_LANES, plan
 
-    def stage(self, data: bytes, first: int = 0, stop: int | None = None):
-        """Upload the dispatch buffers in one copy; returns the staged
-        object ``tokenize_staged`` runs (benchmarks reuse it).  ``first``
-        and ``stop``: stage only those dispatches of the text's plan (a
-        share of a long strip scored on several devices)."""
+    def stage(self, data: bytes, first: int = 0,
+              stop: int | None = None) -> Staged:
+        """Upload the dispatch buffers and their scalars in one copy from
+        pinned memory (host memory on the CPU); returns the ``Staged``
+        text ``tokenize_staged`` runs (benchmarks reuse it).  ``first`` and
+        ``stop``: stage only those dispatches of the text's plan (a share
+        of a long strip scored on several devices); the final flag stays
+        the whole text's."""
         n = len(data)
         arr = np.frombuffer(bytes(data), np.uint8)
         L, plan = self._plan(n)
-        plan = plan[first:stop]
+        picked = range(len(plan))[first:stop]
         total = L * self.chunk + MARGIN
-        p2 = -(-(total + 64) // GRAIN) * GRAIN
-        host = np.zeros((len(plan), p2), np.uint8)
-        slices = []
-        for i, (off, _exact, last_lane) in enumerate(plan):
+        width = -(-(total + 64) // GRAIN) * GRAIN
+        k = len(picked)
+        cuda = self.device.type == "cuda"
+        host = torch.empty(k * width + 12 * k, dtype=torch.uint8,
+                           pin_memory=cuda)
+        h = host.numpy()
+        text = h[:k * width].reshape(k, width)
+        scalars = h[k * width:].view(np.int32).reshape(k, 3)
+        for r, i in enumerate(picked):
+            off, _exact, last_lane = plan[i]
             sl = arr[off:off + total]
-            host[i, :len(sl)] = sl
-            slices.append((len(sl), last_lane))
-        bufs = torch.from_numpy(host).to(self.device)
-        return n, L, [(bufs[i], n_i, lr) for i, (n_i, lr) in enumerate(slices)]
+            text[r, :len(sl)] = sl
+            text[r, len(sl):] = 0
+            scalars[r] = (len(sl), last_lane, int(i == len(plan) - 1))
+        dev = host.to(self.device, non_blocking=True) if cuda else host
+        dtext = dev[:k * width].view(k, width)
+        dscalars = dev[k * width:].view(torch.int32).view(k, 3)
+        bufs = [(dtext[r], int(scalars[r, 0]), int(scalars[r, 1]))
+                for r in range(k)]
+        return Staged(n, L, bufs, dtext, dscalars)
 
-    def _compact(self, recs, toks, buf, start0, last_lane: int,
-                 final: bool):
+    def _compact(self, recs, toks, buf, start0, last_lane, final):
         """The tokenizer's epilogue: (start_next, (out, count, missing,
         sync_ok, junction_ok))."""
         out, count, missing, start_next, sync_ok, junction_ok = (
@@ -172,10 +288,11 @@ class GpuTokenizer:
                                   recs.numel(), self.tables.w3_shift))
         return start_next, (out, count, missing, sync_ok, junction_ok)
 
-    def _records(self, buf, n: int, tabs, chunk: int, overlap: int,
+    def _records(self, buf, n, tabs, chunk: int, overlap: int,
                  n_lanes: int, t_rec: int):
         """Match, decide and follow on ``tabs``, enqueued: the (recs, toks,
-        done_all) of lanes that each scan ``chunk + overlap`` bytes.  Tables
+        done_all) of lanes that each scan ``chunk + overlap`` bytes of
+        ``buf``, ``n`` of them valid (an int, or a device scalar).  Tables
         with a ``rank`` (a trainer candidate's) have their match words
         mapped to candidate indices between match and decide."""
         if tabs.has_space:
@@ -189,40 +306,49 @@ class GpuTokenizer:
         return follow(ctl, tok, n, chunk, n_lanes, overlap, t_rec,
                       tabs.w3_shift)
 
-    def _dispatch(self, buf, n: int, start0, last_lane: int, final: bool,
-                  n_lanes: int, full: bool, tabs, epilogue, patch: dict):
+    def _dispatch(self, buf, scalars, start0, n_lanes: int, full: bool,
+                  tabs, epilogue, patch: dict):
         """One dispatch, enqueued: the records on ``tabs``, the lanes of
         ``patch`` ({lane: (recs, toks) columns}) replaced, then
-        ``epilogue``.  Returns (start_next, (*epilogue outputs, done_all))
-        as device tensors."""
-        recs, toks, done_all = self._records(buf, n, tabs, self.chunk,
-                                             OVERLAP_SCAN, n_lanes,
-                                             self._t_rec(full))
+        ``epilogue``; ``scalars``: its (n, last lane, final) on the device.
+        Returns (start_next, (*epilogue outputs, done_all)) as device
+        tensors."""
+        recs, toks, done_all = self._records(buf, scalars[0], tabs,
+                                             self.chunk, OVERLAP_SCAN,
+                                             n_lanes, self._t_rec(full))
         for lane, (rec_col, tok_col) in patch.items():
             recs[:, lane] = rec_col
             toks[:, lane] = tok_col
-        start_next, out = epilogue(recs, toks, buf, start0, last_lane, final)
+        start_next, out = epilogue(recs, toks, buf, start0, scalars[1],
+                                   scalars[2])
         return start_next, (*out, done_all)
 
-    def _run_staged(self, staged, full: bool, tabs, epilogue,
-                    patches: dict, final: bool = True):
-        """Enqueue every dispatch of a staged text, ``start_next`` carried
-        as a device tensor; no host sync.  ``tabs`` and ``epilogue``: this
-        tokenizer's tables and ``_compact``, or a candidate's tables and
-        the trainer's score epilogue; ``patches``: {dispatch: {lane:
-        columns}} of lanes to replace (the trainer's junction repair);
-        ``final``: the last staged dispatch is the text's last.  Returns
-        per dispatch the epilogue's outputs and the follow's done flag."""
-        _n, L, bufs = staged
-        start0 = torch.zeros((), dtype=torch.int64, device=self.device)
+    def _chain(self, bufs, scalars, start0, n_lanes: int, full: bool, tabs,
+               epilogue, patches: dict):
+        """Enqueue dispatches ``bufs`` (their ``scalars`` rows) from the
+        record skip ``start0``, ``start_next`` carried as a device tensor;
+        no host sync.  Returns (per dispatch the epilogue's outputs and the
+        follow's done flag, the last dispatch's start_next)."""
         outs = []
-        for i, (buf, n_i, last_lane) in enumerate(bufs):
-            start0, out = self._dispatch(buf, n_i, start0, last_lane,
-                                         final and i == len(bufs) - 1, L,
+        for i, buf in enumerate(bufs):
+            start0, out = self._dispatch(buf, scalars[i], start0, n_lanes,
                                          full, tabs, epilogue,
                                          patches.get(i, {}))
             outs.append(out)
-        return outs
+        return outs, start0
+
+    def _run_staged(self, staged: Staged, full: bool, tabs, epilogue,
+                    patches: dict):
+        """Enqueue every dispatch of a staged text op by op, no host sync.
+        ``tabs`` and ``epilogue``: this tokenizer's tables and
+        ``_compact``, or a candidate's tables and the trainer's score
+        epilogue; ``patches``: {dispatch: {lane: columns}} of lanes to
+        replace (the junction repair).  Returns per dispatch the
+        epilogue's outputs and the follow's done flag."""
+        start0 = torch.zeros((), dtype=torch.int64, device=self.device)
+        return self._chain([b[0] for b in staged.bufs], staged.scalars,
+                           start0, staged.lanes, full, tabs, epilogue,
+                           patches)[0]
 
     def chain(self, tabs, data: bytes, at: int, span: int):
         """The text's own record chain from state (``at``, fd 0) through
@@ -275,17 +401,14 @@ class GpuTokenizer:
             cols[lane] = (col[0], col[1])
         return cols
 
-    def run_recorded(self, staged, full: bool, tabs, epilogue,
+    def run_recorded(self, staged: Staged, full: bool, tabs, epilogue,
                      patches: dict):
         """``_run_staged`` that also keeps each dispatch's record grid:
         (outs, grids), grids per dispatch (recs, start0), what
         ``restart_point`` reads where a junction did not hold."""
         grids = []
-
-        def recording(recs, toks, buf, start0, last_lane, final):
-            grids.append((recs, start0))
-            return epilogue(recs, toks, buf, start0, last_lane, final)
-        return self._run_staged(staged, full, tabs, recording, patches), grids
+        return self._run_staged(staged, full, tabs,
+                                _recording(epilogue, grids), patches), grids
 
     def run_repaired(self, staged, data: bytes, tabs, epilogue, held, flags,
                      grids):
@@ -298,7 +421,7 @@ class GpuTokenizer:
         pass, run by ``run_recorded`` on the fast window with no patches,
         that did not hold; the repair starts from them.  Returns (outs,
         whether the full window was used, repairs made)."""
-        _n, L, bufs = staged
+        L, bufs = staged.lanes, staged.bufs
         plan = self._plan(len(data))[1]
         if len(plan) != len(bufs):
             raise ValueError("run_repaired takes a whole text's staging")
@@ -349,11 +472,105 @@ class GpuTokenizer:
             if flags.all():
                 return outs, full, repairs
 
-    def tokenize_staged(self, staged, data: bytes):
+    def _graph(self, staged: Staged, g0: int, k: int, start0):
+        """The captured chain of ``k`` dispatches at ``staged``'s geometry
+        (fast record window), its inputs loaded from dispatch ``g0`` on;
+        captured here at its geometry's first use."""
+        key = (staged.lanes, k, False)
+        graph = self._graphs.get(key)
+        fresh = graph is None
+        if fresh:
+            graph = _Graph(k, staged.text.shape[1], self.device)
+        graph.load(staged, g0, start0)
+        if fresh:
+            lanes = staged.lanes
+
+            def body(text, scalars, s0):
+                grids = []
+                outs, start_next = self._chain(
+                    list(text), scalars, s0, lanes, False, self.tables,
+                    _recording(self._compact, grids), {})
+                return (*finish.finish(outs, self.tables, self.wide_ids),
+                        grids, start_next)
+            graph.capture(body, self._stream)
+            self._graphs[key] = graph
+        return graph
+
+    def _run_captured(self, staged: Staged):
+        """The text's chain as replays of captured graphs, groups of up to
+        ``MAX_FUSED_DISPATCHES`` dispatches, the record skip carried on the
+        device from one group to the next.  Returns (meta (5, k) int32,
+        [(ids, delete bits, dispatches)] a group, grids)."""
+        k = len(staged.bufs)
+        metas, parts, grids, start0 = [], [], [], None
+        index = self.device.index    # None: the current device, as is
+        with torch.cuda.device(-1 if index is None else index):
+            for g0 in range(0, k, MAX_FUSED_DISPATCHES):
+                kg = min(MAX_FUSED_DISPATCHES, k - g0)
+                meta, ids, bits, gr, start0 = self._graph(
+                    staged, g0, kg, start0).replay()
+                if g0 + kg < k:     # a later group may replay this graph
+                    meta, ids, start0 = meta.clone(), ids.clone(), \
+                        start0.clone()
+                    bits = None if bits is None else bits.clone()
+                    gr = [(r.clone(), s.clone()) for r, s in gr]
+                metas.append(meta)
+                parts.append((ids, bits, kg))
+                grids += gr
+        return torch.cat(metas, 1), parts, grids
+
+    def _run_eager(self, staged: Staged):
+        """``_run_captured``'s results from the chain enqueued op by op."""
+        outs, grids = self.run_recorded(staged, False, self.tables,
+                                        self._compact, {})
+        meta, ids, bits = finish.finish(outs, self.tables, self.wide_ids)
+        return meta, [(ids, bits, len(outs))], grids
+
+    def _read(self, tensors) -> list:
+        """Device tensors as numpy arrays: on a card, copied into pinned
+        memory and waited for together."""
+        if self.device.type == "cpu":
+            return [t.numpy() for t in tensors]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return [h.numpy() for h in host]
+
+    def _held(self, outs) -> np.ndarray:
+        """Per dispatch of ``outs``, whether every lane finished and every
+        junction held: (dispatches, 2) bool on the host."""
+        return _held_flags(self._read([finish.meta(outs)])[0])
+
+    def _download(self, parts, counts) -> np.ndarray:
+        """The u32 ids of ``parts`` (``_run_captured``'s), each group's
+        narrowed ids and bitmask read as far as its counts reach."""
+        want, totals, at = [], [], 0
+        for ids, bits, kg in parts:
+            total = int(counts[at:at + kg].sum())
+            at += kg
+            totals.append(total)
+            want.append(ids[:total * (3 if self.wide_ids else 1)])
+            if bits is not None:
+                want.append(bits[:-(-total // 8)])
+        got = iter(self._read(want))
+        out = [finish.host_ids(next(got), next(got) if bits is not None
+                               else None, total, self.tables.delete_token)
+               for (_ids, bits, _kg), total in zip(parts, totals)]
+        return out[0] if len(out) == 1 else np.concatenate(out)
+
+    def tokenize_staged(self, staged: Staged, data: bytes):
         """Run the device pipeline on ``data`` staged (``stage(data)``) and
-        download the ids.  Returns (ids u32, missing), or "missing_byte"
-        where a kept record emits nothing.  A dispatch that did not hold
-        runs again through ``run_repaired``: on the full record window
+        download the ids.  On a card the chain and its finishing replay
+        captured graphs (``_run_captured``); on the CPU they run op by op
+        (``_run_eager``, the same chain enqueued from Python).  One read of
+        the whole text's metadata, then the narrowed ids.  Returns (ids
+        u32, missing), or "missing_byte" where
+        a kept record emits nothing.  A dispatch that did not hold runs
+        again, op by op, through ``run_repaired``: on the full record window
         where a lane overflowed, with junctions repaired (counted in
         ``repairs``) where lanes share no state."""
         if self.tables.match_only:
@@ -361,29 +578,27 @@ class GpuTokenizer:
                 "match-only tables (a trainer superset's) have no decide "
                 "tables: a tokenizer uploads the vocabulary's whole tables "
                 "(match_only=False)")
-
-        def meta_of(outs):
-            return torch.stack([torch.stack([o[j].long() for o in outs])
-                                for j in range(1, 6)]).cpu().numpy()
-
-        def held(outs):
-            return meta_of(outs)[[4, 3]].T != 0
-        outs, grids = self.run_recorded(staged, False, self.tables,
-                                        self._compact, {})
-        flags, full = held(outs), False
-        if not flags.all():
-            outs, full, repairs = self.run_repaired(
-                staged, data, self.tables, self._compact, held, flags, grids)
-            self.repairs += repairs
-        del grids
-        counts, missings, syncs, _junctions, _dones = meta_of(outs)
-        if not syncs.all():
-            return "missing_byte"
-        k = len(outs)
-        self.last_mode = "full" if full else "fast"
-        words = torch.cat([outs[i][0][:int(counts[i])] for i in range(k)])
-        ids = resolve_device(words, self.tables).cpu().numpy()
-        return ids.astype(np.uint32), int(missings.sum())
+        with self._lock:
+            run = (self._run_eager if self.device.type == "cpu"
+                   else self._run_captured)
+            meta_dev, parts, grids = run(staged)
+            meta = self._read([meta_dev])[0]
+            flags, full = _held_flags(meta), False
+            if not flags.all():
+                outs, full, repairs = self.run_repaired(
+                    staged, data, self.tables, self._compact, self._held,
+                    flags, grids)
+                self.repairs += repairs
+                meta_dev, ids, bits = finish.finish(outs, self.tables,
+                                                    self.wide_ids)
+                parts = [(ids, bits, len(outs))]
+                meta = self._read([meta_dev])[0]
+            del grids
+            counts, missings, syncs = meta[0], meta[1], meta[2]
+            if not syncs.all():
+                return "missing_byte"
+            self.last_mode = "full" if full else "fast"
+            return self._download(parts, counts), int(missings.sum())
 
     def tokenize(self, data: bytes):
         """Tokenize normalized+capcoded bytes; returns (ids u32, missing)."""

@@ -32,12 +32,13 @@ _REC_FD, _REC_TOK, _REC_DEL, _REC_MISS = 1, 2, 4, 8
 _NO_STATE = 1 << 62   # above every (position, fd) state
 
 
-def _junctions(recs: torch.Tensor, start0, last_lane: int, final: bool):
+def _junctions(recs: torch.Tensor, start0, last_lane, final):
     """The splice of every junction j (lanes j and j+1) of a (T, L) record
     grid: (kstar, tstar, holds), each (L-1,).  The right lane's first
     record whose state the left lane also reached is its record kstar and
     the left lane's record tstar.  ``holds`` is True where the splice holds
-    or the junction is not owned."""
+    or the junction is not owned.  ``last_lane`` and ``final`` as
+    ``stitched_keep`` takes them."""
     T, L = recs.shape
     dev = recs.device
     r = recs.long()
@@ -54,8 +55,9 @@ def _junctions(recs: torch.Tensor, start0, last_lane: int, final: bool):
     sync_exists = hit.any(dim=1)
     kstar = hit.to(torch.int8).argmax(dim=1)                 # first hit
     tstar = torch.where(sync_exists, at.gather(1, kstar[:, None])[:, 0], 0)
-    need = torch.arange(L - 1, device=dev) < (last_lane if final
-                                              else last_lane + 1)
+    # owned junctions: up to the last owned lane's, which a final
+    # dispatch does not own (its last lane keeps its whole tail)
+    need = torch.arange(L - 1, device=dev) < last_lane + 1 - final
     # a splice holds only where the left lane already follows the text's
     # chain, at or after its own splice record; with chunks longer than
     # the overlap plus a token that always holds
@@ -64,7 +66,7 @@ def _junctions(recs: torch.Tensor, start0, last_lane: int, final: bool):
     return kstar, tstar, holds
 
 
-def stitched_keep(recs: torch.Tensor, start0, last_lane: int, final: bool):
+def stitched_keep(recs: torch.Tensor, start0, last_lane, final):
     """Junction sync search and keep ranges over a (T, L) record grid.
 
     At each junction the right lane's first record whose state the left
@@ -74,11 +76,13 @@ def stitched_keep(recs: torch.Tensor, start0, last_lane: int, final: bool):
     it lies within the left lane's overlap (the JAX package probes only
     the right lane's first 16 records, a bound of its TPU layout).
 
-    ``start0``: records to skip at the head of lane 0 (int or 0-dim
-    tensor); ``last_lane``: last owned lane; ``final``: the last dispatch of
-    a text, whose last owned lane keeps its whole tail.  Returns (flags,
-    keep, start_next, sync_ok, start_rec, end_rec), end_rec -1 for lanes
-    past ``last_lane``."""
+    ``start0``: records to skip at the head of lane 0; ``last_lane``: last
+    owned lane; ``final``: 1 for the last dispatch of a text, whose last
+    owned lane keeps its whole tail, else 0.  Each an int or a 0-dim
+    integer tensor on the grid's device (a dispatch's device scalars, read
+    by tensor arithmetic only, so the work is the same for every text).
+    Returns (flags, keep, start_next, sync_ok, start_rec, end_rec), end_rec
+    -1 for lanes past ``last_lane``."""
     T, L = recs.shape
     dev = recs.device
     flags = recs.long() & 0xF
@@ -98,8 +102,8 @@ def stitched_keep(recs: torch.Tensor, start0, last_lane: int, final: bool):
         start_rec = start0
         sync_ok = torch.ones((), dtype=torch.bool, device=dev)
         start_next = torch.zeros((), dtype=torch.int64, device=dev)
-    if final:
-        end_rec = torch.where(lane_ids == last_lane, n_valid - 1, end_rec)
+    end_rec = torch.where((lane_ids == last_lane) & (final != 0),
+                          n_valid - 1, end_rec)
     t_idx = torch.arange(T, device=dev)[:, None]
     keep = (valid & (t_idx >= start_rec[None, :]) & (t_idx <= end_rec[None, :])
             & (lane_ids[None, :] <= last_lane))
@@ -107,7 +111,7 @@ def stitched_keep(recs: torch.Tensor, start0, last_lane: int, final: bool):
     return flags, keep, start_next, sync_ok, start_rec, end_m
 
 
-def restart_point(recs: torch.Tensor, start0, last_lane: int, final: bool):
+def restart_point(recs: torch.Tensor, start0, last_lane: int, final: int):
     """Where the text's chain can be followed on at the first owned
     junction j (lanes j and j+1) of a (T, L) record grid whose splice does
     not hold: (g, at, j), lane g the last lane up to j that holds a record
@@ -190,14 +194,15 @@ def compact(recs: torch.Tensor, toks: torch.Tensor, s: torch.Tensor,
 
 
 def device_stitch_compact(recs: torch.Tensor, toks: torch.Tensor, start0,
-                          last_lane: int, final: bool, out_cap: int,
+                          last_lane, final, out_cap: int,
                           w3_shift: int = W3_SHIFT):
-    """Stitch and compact one dispatch, on its device with no host sync.
-    Returns (out int32 [out_cap], count, missing, start_next, sync_ok,
-    junction_ok) as 0-dim tensors.  junction_ok is False when an owned
-    junction found no shared state; sync_ok is False then too, and when a
-    kept record emits nothing (a missing byte in a vocabulary without an
-    unk token)."""
+    """Stitch and compact one dispatch, on its device with no host sync;
+    ``start0``, ``last_lane`` and ``final`` as ``stitched_keep`` takes
+    them.  Returns (out int32 [out_cap], count, missing, start_next,
+    sync_ok, junction_ok) as 0-dim tensors.  junction_ok is False when an
+    owned junction found no shared state; sync_ok is False then too, and
+    when a kept record emits nothing (a missing byte in a vocabulary
+    without an unk token)."""
     T, L = recs.shape
     flags, keep, start_next, sync_ok, start_rec, end_rec = stitched_keep(
         recs, start0, last_lane, final)
@@ -215,9 +220,8 @@ def device_stitch_compact(recs: torch.Tensor, toks: torch.Tensor, start0,
 
 
 def device_stitch_score(recs: torch.Tensor, emit: torch.Tensor,
-                        text: torch.Tensor, start0, last_lane: int,
-                        final: bool, n_ids: int, chunk: int,
-                        delete_token: int = 0):
+                        text: torch.Tensor, start0, last_lane, final,
+                        n_ids: int, chunk: int, delete_token: int = 0):
     """Trainer epilogue of one dispatch: chars-covered scores over the
     spliced record stream, on its device with no host sync.  Port of
     ``tokenmonster_tpu/ops/stitch.py::device_stitch_score`` (XLA there),

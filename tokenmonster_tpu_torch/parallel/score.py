@@ -63,7 +63,7 @@ def score_epilogue(tabs, n_ids: int, chunk: int):
     ids3 = tabs.ids3.long().reshape(-1) & 0xFFFFFFFF
     S = tabs.w3_shift
 
-    def epilogue(recs, toks, buf, start0, last_lane: int, final: bool):
+    def epilogue(recs, toks, buf, start0, last_lane, final):
         t = toks.long()
         idx = t & ((1 << S) - 1)
         w3 = (t >> S) & 3
@@ -200,9 +200,8 @@ def _score_piece(tk: GpuTokenizer, tabs, epilogue, data: bytes, first: int,
     unscored, for the record skip it hands on."""
     warm = 1 if first > 0 else 0
     staged = tk.stage(data, first - warm, stop)
-    final = stop == len(tk._plan(len(data))[1])
-    return _sum_outs(tk._run_staged(staged, False, tabs, epilogue, {},
-                                    final)[warm:])
+    return _sum_outs(tk._run_staged(staged, False, tabs, epilogue,
+                                    {})[warm:])
 
 
 def _slot_share(tk: GpuTokenizer, tabs, datasets, pieces, n_dispatches,

@@ -171,11 +171,12 @@ def main(names: list[str]) -> int:
     ctl = torch.empty((2, N), dtype=torch.int32, device=dev)
     tok = torch.empty((2, N), dtype=torch.int32, device=dev)
 
+    n_t = _build.scalar_arg(n, "n", N, dev)
     args = _build.DecideArgs(
         m=m.data_ptr(), mb=mb.data_ptr(), text=buf.data_ptr(),
         entries=tabs.entries.data_ptr(), bb=tabs.bb.data_ptr(),
-        ctl=ctl.data_ptr(), tok=tok.data_ptr(), N=N,
-        n_entries=tabs.entries.shape[1], n=n, has_delete=1,
+        ctl=ctl.data_ptr(), tok=tok.data_ptr(), n=n_t.data_ptr(), N=N,
+        n_entries=tabs.entries.shape[1], has_delete=1,
         has_unk=int(tabs.has_unk), unk_token=tabs.unk_token,
         lil_off=tabs.lil_off, w3_shift=tabs.w3_shift)
     stream = torch.cuda.current_stream().cuda_stream
