@@ -29,7 +29,13 @@ written), with times.  Then the cell's next candidate on its own tables
 (a placement of its own, full tables): scored by a scorer never
 prepared, and with a token the superset lacks and with an unk token by
 the prepared one, on one slot and on two, against native and REMAP mode,
-with its kernels against their plain versions.  Then getalltokens of
+with its kernels against their plain versions.  Then the trainer's score
+chain as the JAX package runs it (16 strips a device call, one replay of
+a captured graph a batch, one read-back a candidate) against the same
+batches op by op, in turns: 20 strips of 72 KB a candidate and the full
+text, every score equal to native on both paths, launches equal, the
+captures no more than the keys, with enqueue, score and call times (at
+reference scale too, on its 100 strips).  Then getalltokens of
 that configuration with ``TM_GAT_DEVICE=1`` (the window sort on the card;
 the ``.tok`` byte for byte the host sort's; each micro-chunk's sort timed
 against the native sort in turns), and the same two rounds with the scorer over two slots of
@@ -509,6 +515,179 @@ def _cand_key(cand) -> str:
     return hashlib.sha1(b"\0".join(bytes(t) for t in cand.tokens)).hexdigest()
 
 
+def port_native_score(cand, datasets):
+    """The native trainer scorer (``tm_tokenize_score``): the port's
+    ``CandidateScorer(backend="native").score``."""
+    from tokenmonster_tpu_torch.train import trainvocab as port
+    return port.CandidateScorer(cand.charset, cand.using_capcode,
+                               cand.normalizer.flag).score(cand, datasets)
+
+
+def worker_strips(text: bytes, seed: int) -> list:
+    """A worker's strips of ``text`` as ``train_vocab`` cuts them at its
+    defaults (15% of the text in 20 strips below 10 MB, else 100), from a
+    seeded first offset."""
+    import random
+    n = len(text)
+    count = 20 if n < 10 * 1024 * 1024 else 100
+    per = n * 15 // 100 // count
+    per += 4 - per % 4
+    offset = n // count
+    frm = random.Random(seed).randrange(max(1, offset))
+    strips = []
+    for _ in range(count):
+        if frm + per > n:
+            frm = frm + per - n
+        strips.append(text[frm:frm + per])
+        frm += offset
+    return strips
+
+
+def score_chain_phase(card: str, key: str, sc, cells: dict, candidate,
+                      native_score, rounds: str, candidates: int = 2) -> dict:
+    """The trainer's score chain as the JAX package runs it against the
+    same batches op by op, on the prepared scorer ``sc`` (no new arm):
+    for each cell of ``cells`` (name -> strips), ``candidates`` seeded
+    candidates (``candidate()``) scored through ``sc.score`` with every
+    batch a replay of its captured graph, and with ``_run_captured``
+    replaced by ``_run_eager``, in turns after one captured warm-up.
+    Each score equals native's (scores, token count, missing set) on
+    both paths, launches per kernel a candidate are equal, the captured
+    path replays once a batch and reads back once a candidate, and the
+    captures are no more than the keys the cells use.  Prints per
+    candidate the enqueue, score and call ms of each path, replays,
+    read-backs and launches; ``rounds``: the cell's round times, cuda
+    against native.  Returns, per kernel, its launches a candidate on
+    the captured path, by cell."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from tokenmonster_tpu_torch.ops import _build, scan, tables
+    from tokenmonster_tpu_torch.parallel import score as pscore
+    from tokenmonster_tpu_torch.train import trainvocab as port
+
+    t_phase = time.perf_counter()
+    tk = sc._sup.tokenizer
+    before = set(tk._graphs)
+    eager0 = dict(sc.eager_scores)
+    keys, out = set(), {}
+
+    def batch_keys(cand, strips):
+        strips = [d for d in strips if len(d)]
+        B = pscore.batch_size(len(strips))
+        cap = pscore.ids_cap(max(len(tk.vocab.reverse), len(cand.reverse)))
+        width = tables.bucket_width(len(cand.tokens))
+        got = set()
+        for g in range(0, len(strips), B):
+            plans = [tk._plan(len(d)) for d in strips[g:g + B]]
+            got.add(("score", max(p[0] for p in plans),
+                     max(len(p[1]) for p in plans), B, width, cap))
+        return got
+
+    def run(cand, strips, name: str) -> dict:
+        """One ``sc.score`` call on ``name``'s path, its steps timed and
+        its replays, read-backs and launches counted."""
+        seen = {"enqueue": 0.0, "score": 0.0, "replays": 0, "reads": 0}
+        real_run = (pscore._run_eager if name == "eager"
+                    else pscore._run_captured)
+        real_whole, real_replay = port.score_whole, scan._Graph.replay
+        real_cpu = torch.Tensor.cpu
+
+        def enqueue(*args):
+            t0 = time.perf_counter()
+            res = real_run(*args)
+            seen["enqueue"] += time.perf_counter() - t0
+            return res
+
+        def whole(*args):
+            t0 = time.perf_counter()
+            res = real_whole(*args)
+            seen["score"] += time.perf_counter() - t0
+            return res
+
+        def replay(graph):
+            seen["replays"] += 1
+            return real_replay(graph)
+
+        def cpu(t, *args, **kw):
+            seen["reads"] += t.is_cuda
+            return real_cpu(t, *args, **kw)
+
+        with ExitStack() as stack:
+            for obj, attr, fn in ((pscore, "_run_captured", enqueue),
+                                  (port, "score_whole", whole),
+                                  (scan._Graph, "replay", replay),
+                                  (torch.Tensor, "cpu", cpu)):
+                stack.enter_context(mock.patch.object(obj, attr, fn))
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            got = sc.score(cand, strips)
+            seen["call"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            seen["launches"] = dict(_build.launches)
+        seen["got"] = got
+        return seen
+
+    for cell, strips in cells.items():
+        cands = [candidate() for _ in range(candidates)]
+        wants = [native_score(cand, strips) for cand in cands]
+        warm = sc.score(cands[0], strips)        # captures the cell's keys
+        require(np.array_equal(warm[0], wants[0][0])
+                and warm[1:] == wants[0][1:],
+                f"{key} {cell}: the warm-up call differs from native")
+        for cand in cands:
+            keys |= batch_keys(cand, strips)
+        n_strips = sum(1 for d in strips if len(d))
+        n_b = -(-n_strips // pscore.batch_size(n_strips))
+        for ci, (cand, want) in enumerate(zip(cands, wants)):
+            runs = {}
+            for name in (("captured", "eager") if ci % 2 == 0
+                         else ("eager", "captured")):
+                runs[name] = run(cand, strips, name)
+                got = runs[name]["got"]
+                require(np.array_equal(got[0], want[0])
+                        and got[1:] == want[1:],
+                        f"{key} {cell} candidate {ci}: the {name} path "
+                        "differs from native")
+            cap_run, eag_run = runs["captured"], runs["eager"]
+            require(cap_run["launches"] == eag_run["launches"],
+                    f"{key} {cell}: launches differ: {cap_run['launches']}"
+                    f" against {eag_run['launches']}")
+            require(all(cap_run["launches"][k] > 0 for k in TRAIN_KERNELS),
+                    f"{key} {cell}: a kernel was not launched")
+            require(cap_run["replays"] == n_b and eag_run["replays"] == 0,
+                    f"{key} {cell}: {cap_run['replays']} replays for "
+                    f"{n_b} batches, {eag_run['replays']} op by op")
+            for k in TRAIN_KERNELS:
+                out.setdefault(k, {})[f"{key} {cell}"] = \
+                    cap_run["launches"][k]
+            print(f"{key} {cell} candidate {ci}: {len(cand.reverse)} ids, "
+                  f"{len(strips)} strips of {len(strips[0])} bytes, "
+                  f"{n_b} batches; " + "; ".join(
+                      f"{name}: enqueue {r['enqueue'] * 1e3:.3f} ms, score "
+                      f"{r['score'] * 1e3:.3f} ms, call "
+                      f"{r['call'] * 1e3:.3f} ms, replays {r['replays']}, "
+                      f"read-backs {r['reads']}"
+                      for name, r in runs.items())
+                  + f"; launches a candidate {cap_run['launches']}; equal "
+                  f"to native on both paths ({want[1]} tokens) [{card}]")
+            CAPTURED.setdefault(f"score {key} {cell}", []).append(
+                {name: {m: r[m] for m in ("enqueue", "score", "call",
+                                          "replays", "reads", "launches")}
+                 for name, r in runs.items()})
+    fresh = set(tk._graphs) - before
+    require(fresh <= keys and tk.captures <= len(before | keys),
+            f"{key}: graphs {sorted(tk._graphs)} beyond the keys "
+            f"{sorted(keys)}")
+    eager = {c: sc.eager_scores[c] - eager0[c] for c in eager0}
+    require(eager["own_tables"] == eager["split_share"] == 0,
+            f"{key}: whole strips left the batched path: {eager}")
+    print(f"{key}: captures {tk.captures} for keys {sorted(keys)}; op by "
+          f"op by cause in this phase {eager}; {rounds}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 def trainer_phase(dev, card: str, work: str):
     """Candidate scoring and ``train_vocab`` on the card, in ``work``;
     returns, per kernel on the trainer's path, its trainer-shape numbers,
@@ -528,12 +707,7 @@ def trainer_phase(dev, card: str, work: str):
 
     failed = []
     load_native()
-
-    def native_score(cand, datasets):
-        """The native trainer scorer (``tm_tokenize_score``): the port's
-        ``CandidateScorer(backend="native").score``."""
-        return port.CandidateScorer(cand.charset, cand.using_capcode,
-                                   cand.normalizer.flag).score(cand, datasets)
+    native_score = port_native_score
 
     def check(cond, msg: str) -> None:
         """Record a failed check; the phase fails at its end, after every
@@ -660,11 +834,14 @@ def trainer_phase(dev, card: str, work: str):
               "a candidate of the cuda run differs from native")
     check(all(launches[k] > 0 for k in TRAIN_KERNELS),
           f"a trainer kernel was not launched: {launches}")
+    check(scorers[0].eager_scores["split_share"] == 0,
+          f"a share of a strip ran op by op: {scorers[0].eager_scores}")
     print(f"train_vocab: {len(scored)} candidates scored on the card "
           f"and by native, {len(files)} files written "
           f"({', '.join(sorted(files))}); junction repairs "
-          f"{scorers[0].repairs}, every byte on the card; launches "
-          f"{launches}")
+          f"{scorers[0].repairs}, every byte on the card; op by op by "
+          f"cause {scorers[0].eager_scores}; captures "
+          f"{scorers[0]._sup.tokenizer.captures}; launches {launches}")
     arm = scorers[0].arm_s if scorers else 0.0
     print(f"wall per round: cuda {(cuda_s - arm) / TRAIN_ROUNDS:.3f} s "
           f"after a {arm:.3f} s superset arm, native "
@@ -674,6 +851,7 @@ def trainer_phase(dev, card: str, work: str):
         raw=t.raw, text=t.text, tok_path=t.tok_path, gat_s=t.gat_s,
         rounds_native=rounds_native, files_native=_dir_bytes(res_native),
         round_s=(cuda_s - arm) / TRAIN_ROUNDS,
+        native_round_s=native_s / TRAIN_ROUNDS,
         scored={_cand_key(c): r for c, _d, r in scored}, inputs=t)
 
     out = {}
@@ -745,6 +923,7 @@ def own_tables_phase(dev, card: str, t) -> dict:
 
     from tokenmonster_tpu_torch.ops import _build
     from tokenmonster_tpu_torch.ops.scan import MARGIN, GpuTokenizer
+    from tokenmonster_tpu_torch.parallel import score as pscore
     from tokenmonster_tpu_torch.parallel.score import score_strips
     from tokenmonster_tpu_torch.train import trainvocab as port
     from tokenmonster_tpu_torch.train.score_helpers import \
@@ -764,7 +943,7 @@ def own_tables_phase(dev, card: str, t) -> dict:
 
     timed = {}
     real_build, real_strips, real_slots = (port.build_hashmatch,
-                                           port.score_strips,
+                                           pscore.score_strips,
                                            port.score_slots)
     own_tks = []
 
@@ -842,7 +1021,7 @@ def own_tables_phase(dev, card: str, t) -> dict:
     _build.reset_launches()
     with mock.patch.object(port, "build_hashmatch", placement), \
             mock.patch.object(port, "GpuTokenizer", Upload), \
-            mock.patch.object(port, "score_strips", strips_on_events), \
+            mock.patch.object(pscore, "score_strips", strips_on_events), \
             mock.patch.object(port, "score_slots", slots_on_host):
         for what, scorer_, c in cases:
             one[what] = scored(scorer_, c, what)
@@ -1701,10 +1880,7 @@ def pool_phase(dev, card: str, raw: bytes, pool_of, min_occur: int,
             print(f"FAILED: {msg}", flush=True)
             failed.append(msg)
 
-    def native_score(cand, datasets):
-        return port.CandidateScorer(cand.charset, cand.using_capcode,
-                                   cand.normalizer.flag).score(cand, datasets)
-
+    native_score = port_native_score
     counter, char_table, header = pool_of
     tok_path = os.path.join(work, f"{key}.tok")
     save_tokens_file(tok_path, counter, char_table, header)
@@ -1916,13 +2092,26 @@ def pool_phase(dev, card: str, raw: bytes, pool_of, min_occur: int,
           f"{scorers[0].repairs if scorers else 0}; launches {launches} "
           f"({launches['match'] / max(1, len(scored)):.0f} dispatches a "
           f"candidate: its strips, one or more each)")
-    print(f"wall per round: cuda {(cuda_s - arm) / rounds:.3f} s after "
-          f"a {arm:.3f} s arm (vocabulary and placement shared), of which "
-          f"score calls {sum(score_s) / rounds:.3f} s (two threads); "
-          f"native {native_s / rounds:.3f} s, of which score calls "
-          f"{sum(native_score_s) / rounds:.3f} s ({os.cpu_count()} "
-          f"host threads) [{card}]")
+    round_line = (f"wall per round: cuda {(cuda_s - arm) / rounds:.3f} s "
+                  f"after a {arm:.3f} s arm (vocabulary and placement "
+                  f"shared), of which score calls "
+                  f"{sum(score_s) / rounds:.3f} s (two threads); native "
+                  f"{native_s / rounds:.3f} s, of which score calls "
+                  f"{sum(native_score_s) / rounds:.3f} s "
+                  f"({os.cpu_count()} host threads)")
+    print(f"{round_line}; op by op by cause "
+          f"{scorers[0].eager_scores if scorers else {}} [{card}]")
     require(not failed, f"{key} trainer: {len(failed)} checks failed")
+    chain = {}
+    if shift == 21:
+        phase("trainer at reference scale: the captured score chain "
+              "against op by op")
+
+        def next_candidate():
+            rng.shuffle(multi)
+            return sc.build(singles + multi[:TRAIN_VOCAB - len(singles)])
+        chain = score_chain_phase(card, key, sc, {"strips": worker_strips(
+            text, TRAIN_SEED)}, next_candidate, native_score, round_line)
     wide = wide_tokenizer_phase(dev, card, sup, raw, text, work, shift,
                                 "wide" if shift == 21 else key)
 
@@ -1952,6 +2141,8 @@ def pool_phase(dev, card: str, raw: bytes, pool_of, min_occur: int,
               f"{tables_of}) [{card}]")
     for name, numbers in wide.items():
         out.setdefault(name, {}).update(numbers)
+    for name, numbers in chain.items():
+        out[name].setdefault("score_graph_launches", {}).update(numbers)
     out["match"][f"{p}_filter_fill"] = fill
     out["decide"].update({f"{p}_gather_ms": g_ms,
                           f"{p}_gather_device_ms": g_device_ms,
@@ -2391,6 +2582,17 @@ def main() -> int:
         require_self_contained("the trainer")
         phase("trainer: candidates on their own tables")
         own = own_tables_phase(dev, card, shared.inputs)
+        phase("trainer: the captured score chain against op by op")
+        t = shared.inputs
+        chain = score_chain_phase(
+            card, "trainer", t.sc, {"strips": worker_strips(t.text,
+                                                            TRAIN_SEED),
+                                    "full text": [t.text]},
+            t.candidate, port_native_score,
+            f"wall per round (trainer phase): cuda {shared.round_s:.3f} s, "
+            f"native {shared.native_round_s:.3f} s")
+        for name, numbers in chain.items():
+            trainer[name]["score_graph_launches"] = numbers
         phase("getalltokens: the window sort on the card")
         device_sort = sort_phase(dev, card, shared)
         phase("trainer: multi-device scoring, two slots and two processes")
@@ -2405,9 +2607,14 @@ def main() -> int:
     pipeline = cli_phase(dev, card)
     require_self_contained("the pipeline")
     for k in kernels:
+        # the score graph's launches a candidate, by cell
+        graphs = {cell: n for part in (trainer, bigpool)
+                  for cell, n in part.get(k["name"], {}).get(
+                      "score_graph_launches", {}).items()}
         k.update(trainer.get(k["name"], {}))
         k.update(own.get(k["name"], {}))
         k.update(bigpool.get(k["name"], {}))
+        k["score_graph_launches"] = graphs
         k["pipeline_launches"] = pipeline[k["name"]]
         if k["name"] in TRAIN_KERNELS:
             k["two_slot_launches"] = multidevice["two_slot_launches"][

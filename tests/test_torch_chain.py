@@ -258,7 +258,7 @@ class _EagerGraph(scan._Graph):
         self.body, self.launches = body, {}
 
     def replay(self):
-        return self.body(self.text, self.scalars, self.start0)
+        return self.body(self.inputs)
 
 
 @pytest.mark.parametrize("name", ["capcode", "plain"])

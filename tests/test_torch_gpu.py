@@ -673,7 +673,7 @@ def test_remap_scorer_on_card_equals_native(trainer, monkeypatch, how):
     bufs = tk.stage(data[:(LANES - 1) * CHUNK + MARGIN]).bufs
     buf, n, _last = bufs[0]
     tabs = candidate_runtime_state(sc._sup, cand)
-    assert tabs.meta.shape[1] == tables.meta_width(len(cand.tokens))
+    assert tabs.meta.shape[1] == tables.bucket_width(len(cand.tokens))
     m, mb = match(buf, n, tabs)
     for g, w in zip((m, mb), match_plain(buf, n, tabs)):
         _equal(g, w)
@@ -943,3 +943,118 @@ def test_failed_capture_raises(cuda, monkeypatch):
     ids, _missing = tk.tokenize(data)
     np.testing.assert_array_equal(ids, NativeVocab(v).tokenize(data)[0])
     assert tk.captures == 1
+
+
+def _score_both(sc, cand, strips):
+    """(captured, eager) ``sc.score`` results and launches per kernel, the
+    captured path counted on a call after its keys are captured; the
+    eager path is the same call with each batch op by op."""
+    from tokenmonster_tpu_torch.parallel import score as pscore
+    sc.score(cand, strips)
+    runs = []
+    for eager in (False, True):
+        _build.reset_launches()
+        with mock.patch.object(pscore, "_run_captured", pscore._run_eager) \
+                if eager else nullcontext():
+            got = sc.score(cand, strips)
+        torch.cuda.synchronize()
+        runs.append((got, dict(_build.launches)))
+    return runs
+
+
+def _strips_of(data, count, size):
+    step = (len(data) - size) // count
+    return [data[i * step:i * step + size] for i in range(count)]
+
+
+@pytest.mark.parametrize("cell", ["strips", "full"])
+def test_captured_score_chain_equals_eager_and_native(trainer, cell):
+    """The trainer's score chain as replays of captured graphs (20 strips
+    of 40 kB, 16 a replay, the last batch 4 of 16 rows; one strip of two
+    dispatches at batch 1) equals the same batches op by op and native,
+    with as many launches of each kernel; the captures are no more than
+    the keys, and nothing ran op by op."""
+    from tokenmonster_tpu_torch.parallel import score as pscore
+    sc, cand, data = trainer
+    tk = sc._sup.tokenizer
+    strips = (_strips_of(data, 20, 40_000) if cell == "strips"
+              else [data[:(LANES - 1) * CHUNK + 300_000]])
+    before, eager0 = set(tk._graphs), dict(sc.eager_scores)
+    (got, got_l), (eager, eager_l) = _score_both(sc, cand, strips)
+    want = native_score(cand, strips)
+    for g in (got, eager):
+        np.testing.assert_array_equal(g[0], want[0])
+        assert g[1:] == want[1:]
+    assert got_l == eager_l and all(got_l[k] > 0 for k in
+                                    ("match", "decide", "follow"))
+    assert got_l["match"] == (32 if cell == "strips" else 2)
+    new = set(tk._graphs) - before     # one key: the strips' geometry
+    B = pscore.batch_size(len(strips))
+    assert all(k[0] == "score" and k[3] == B for k in new) and len(new) <= 1
+    assert tk.captures == len(before) + len(new)
+    assert sc.eager_scores == eager0
+
+
+def test_two_threads_replay_score_graphs_safely(trainer):
+    """Two threads score two candidates at once through the same captured
+    graphs (each holds a graph's lock from loading its inputs through
+    reading its outputs): each equals itself scored alone."""
+    import threading
+    sc, cand, data = trainer
+    tokens = [bytes(t) for t in sc._sup.vocab.tokens]
+    rng = np.random.default_rng(9)
+    other = sc.build([t for t in tokens
+                      if len(t) == 1 or rng.random() < 0.6])
+    strips = _strips_of(data, 20, 30_000)
+    cands = [cand, other]
+    alone = [sc.score(c, strips) for c in cands]
+    assert not np.array_equal(alone[0][0], alone[1][0])
+    results = [[], []]
+
+    def work(i):
+        for _ in range(4):
+            results[i].append(sc.score(cands[i], strips))
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    for want, got in zip(alone, results):
+        assert len(got) == 4
+        for g in got:
+            np.testing.assert_array_equal(g[0], want[0])
+            assert g[1:] == want[1:]
+
+
+def test_failed_score_capture_raises(cuda, monkeypatch):
+    """A score chain that syncs inside its capture cannot be captured: the
+    call raises and keeps no graph; nothing scores op by op in its
+    place."""
+    from tokenmonster_tpu_torch.parallel import score as pscore
+    v = _real32k()
+    sc = GpuCandidateScorer(v.charset, v.using_capcode, v.normalizer.flag,
+                            device=cuda)
+    sc.set_specials([])
+    tokens = [bytes(t) for t in v.tokens]
+    sc.prepare(tokens)
+    cand = sc.build(tokens)
+    raw, _dropped = stdlib_text(None, 1 << 20)
+    strips = _strips_of(v.normalize(raw), 3, 50_000)
+    sums = pscore._batch_sums
+
+    def syncing(*args):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return sums(*args)
+    monkeypatch.setattr(pscore, "_batch_sums", syncing)
+    with pytest.raises(RuntimeError):
+        sc.score(cand, strips)
+    assert sc._sup.tokenizer.captures == 0
+    assert sum(sc.eager_scores.values()) == 0
+    monkeypatch.setattr(pscore, "_batch_sums", sums)
+    torch.cuda.synchronize()
+    got = sc.score(cand, strips)
+    want = native_score(cand, strips)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:] and sc._sup.tokenizer.captures == 1

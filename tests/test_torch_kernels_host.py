@@ -143,9 +143,9 @@ def _decide_host(lib, dt, buf, n, m, mb, tile=None):
         m=m.data_ptr(), mb=(mb if mb is not None else m).data_ptr(),
         text=buf.data_ptr(), entries=dt.entries.data_ptr(),
         bb=dt.bb.data_ptr(), ctl=got_c.data_ptr(), tok=got_t.data_ptr(),
-        n=n_t.data_ptr(), N=N, n_entries=dt.entries.shape[1],
-        has_delete=int(dt.has_delete), has_unk=int(dt.has_unk),
-        unk_token=dt.unk_token, lil_off=dt.lil_off, w3_shift=dt.w3_shift)
+        n=n_t.data_ptr(), literals=dt.literals.data_ptr(), N=N,
+        n_entries=dt.entries.shape[1], has_delete=int(dt.has_delete),
+        lil_off=dt.lil_off, w3_shift=dt.w3_shift)
     lib.tm_decide_host(ctypes.byref(args), tile or lib.tm_decide_tile())
     return got_c, got_t
 
@@ -485,6 +485,37 @@ def test_argument_structs_match_their_ctypes_mirrors(host_lib):
     assert list(got[:count]) == want
     for st in structs[:3]:
         assert dict(st._fields_)["n"] is ctypes.c_void_p
+    assert dict(_build.DecideArgs._fields_)["literals"] is ctypes.c_void_p
+
+
+def test_decide_reads_the_unk_literal_through_its_pointer(host_lib):
+    """decide's unk id and flag are read on the device (``literals``, a
+    trainer candidate's, so one captured score chain serves every
+    candidate): the kernel's code and the plain version, given the same
+    tables with another unk id or with the unk flag cleared, write the
+    misses' token words and has_tok bits those literals say."""
+    v = VOCABS["unk"]()
+    dt = upload_tables(v, hashmatch_tables(v), "cpu")
+    data = text_for("unk", v, N - 700, seed=5)
+    buf = torch.zeros(N, dtype=torch.uint8)
+    buf[:len(data)] = torch.tensor(list(data), dtype=torch.uint8)
+    n = len(data)
+    m = match_plain(buf, n, dt)
+    base_c, base_t = decide_plain(m, None, buf, n, dt)
+    miss = (base_c & (1 << 9)) != 0
+    assert miss.any() and dt.has_unk
+    for unk, has in ((dt.unk_token + 7, 1), (dt.unk_token, 0)):
+        dt.literals = torch.tensor([unk, has, dt.delete_token],
+                                   dtype=torch.int32)
+        ctl, tok = decide_plain(m, None, buf, n, dt)
+        got_c, got_t = _decide_host(host_lib, dt, buf, n, m, None, 61)
+        assert torch.equal(got_c.reshape(ctl.shape), ctl)
+        assert torch.equal(got_t.reshape(tok.shape), tok)
+        assert torch.equal(tok[miss], torch.full_like(tok[miss],
+                                                      (3 << 20) | unk))
+        assert torch.equal((ctl[miss] >> 7) & 1,
+                           torch.full_like(ctl[miss], has))
+        assert torch.equal(ctl[~miss], base_c[~miss])
 
 
 def test_stages_read_n_from_dispatch_scalars(host_lib, stages):

@@ -106,12 +106,11 @@ def test_candidate_state_equals_jax_remap(name, monkeypatch):
         assert ct.rank.shape == (len(sup.vocab.tokens),)
         planes = np.asarray(planes).reshape(2, -1)
         w = ct.meta.shape[1]
-        assert w == tables.meta_width(n_c) and w >= n_c
-        np.testing.assert_array_equal(ct.meta.numpy(), planes[:, :w])
-        assert not planes[:, w:].any()
+        assert w == tables.bucket_width(n_c) and w >= n_c
+        np.testing.assert_array_equal(ct.meta.numpy(), planes)
         ids3f = np.asarray(ids3f).reshape(-1, 3)
         np.testing.assert_array_equal(ct.ids3.numpy().view(np.uint32),
-                                      ids3f[:n_c])
+                                      ids3f)
         assert not ids3f[n_c:].any()
         np.testing.assert_array_equal(ct.bb.numpy(),
                                       np.asarray(bb).reshape(-1))
@@ -278,18 +277,20 @@ def test_remap_refusals(monkeypatch):
     assert base.match_only and base.meta is None and base.ids3 is None
     flat = tables.flat_tables(sup.hashmatch)
     scalars = tables.smem_scalars(sup.hashmatch)
-    planes, bb = tables.build_meta_planes(cand)
-    ids = tables.ids3(cand)
+    _planes, bb = tables.build_meta_planes(cand)
+    assert _planes.size == good.meta.numel()     # both 8 rows here
+    planes = good.meta.numpy()
+    ids = good.ids3.numpy().view(np.uint32)
     rank = good.rank.numpy()
     n_sup = len(sup.vocab.tokens)
     at_sup = np.zeros((n_sup, 3), np.uint32)
-    for bad, what in (((planes.reshape(2, -1), bb, ids, rank[:-1]), "rank"),
-                      ((planes.reshape(2, -1), bb, ids[:-1], rank), "ids3"),
-                      ((planes.reshape(2, -1), bb, at_sup, rank), "ids3"),
+    for bad, what in (((planes, bb, ids, rank[:-1]), "rank"),
+                      ((planes, bb, ids[:-1], rank), "ids3"),
+                      ((planes, bb, at_sup, rank), "ids3"),
+                      ((planes, bb, tables.ids3(cand), rank), "ids3"),
                       ((np.zeros((2, tables.meta_width(n_sup) + 1024),
                                  np.int32), bb, ids, rank), "meta"),
-                      ((planes.reshape(2, -1), bb, ids,
-                        rank.astype(np.int64)), "rank")):
+                      ((planes, bb, ids, rank.astype(np.int64)), "rank")):
         with pytest.raises(ValueError, match=what):
             tables.CandidateTables(base, cand, flat, scalars, *bad)
 

@@ -121,18 +121,18 @@ def test_candidate_state_equals_jax(masked):
     np.testing.assert_array_equal(ctabs.scalars.numpy(), se)
     planes = np.asarray(planes).reshape(2, -1)
     n_c, w = len(cand.tokens), ctabs.meta.shape[1]
-    assert w == ttab.meta_width(n_c)
-    np.testing.assert_array_equal(ctabs.meta.numpy(), planes[:, :w])
-    assert not planes[:, w:].any()
+    assert w == ttab.bucket_width(n_c) == planes.shape[1]
+    np.testing.assert_array_equal(ctabs.meta.numpy(), planes)
+    assert not planes[:, n_c:].any()
     assert torch.equal(ctabs.entries, ttab.decide_entries(
         torch.tensor(planes[:, :w]), ctabs.entries.shape[0]))
     np.testing.assert_array_equal(ctabs.bb.numpy(),
                                   np.asarray(bb).reshape(-1))
     ids3f = np.asarray(ids3f).reshape(-1, 3)
     np.testing.assert_array_equal(ctabs.ids3.numpy().view(np.uint32),
-                                  ids3f[:n_c])
+                                  ids3f)
     assert not ids3f[n_c:].any()
-    assert ctabs.delete_token == del_tok
+    assert ctabs.delete_token == del_tok == int(ctabs.literals[2])
 
 
 def test_masked_match_decide_equal_jax_and_candidate(masked):

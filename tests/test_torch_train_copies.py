@@ -154,8 +154,8 @@ def test_from_reference_tables_equals_port_placement(name):
     for c_got, c_own in zip(got.classes, own.classes):
         assert isinstance(c_got, thm.ClassTable)
         _fields_equal(c_got, c_own, thm.ClassTable)
-    a = tables.upload_tables(v, ref)
-    b = tables.upload_tables(v, own)
+    a = tables.upload_tables(v, ref, "cpu")
+    b = tables.upload_tables(v, own, "cpu")
     for key, buf in b.state_dict().items():
         assert torch.equal(a.state_dict()[key], buf), key
     with pytest.raises(TypeError, match="placement"):

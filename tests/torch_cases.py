@@ -214,7 +214,7 @@ def wide_tables(dt, off: int = WIDE_OFFSET, w3_shift: int = W3_SHIFT_WIDE):
     ids3[off:] = dt.ids3
     out = types.SimpleNamespace(**{k: getattr(dt, k) for k in (
         "bb", "has_delete", "has_unk", "unk_token", "delete_token",
-        "lil_off", "has_space")})
+        "literals", "lil_off", "has_space")})
     out.meta, out.ids3, out.w3_shift = meta, ids3, w3_shift
     out.entries = decide_entries(meta, 2 if dt.has_delete else 1)
     return out

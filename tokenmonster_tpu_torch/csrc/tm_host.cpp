@@ -141,9 +141,9 @@ int tm_args_layout(int64_t* out) {
       TM_OFF(MatchArgs, pad_),
       (int64_t)sizeof(tmk::DecideArgs), TM_OFF(DecideArgs, m), TM_OFF(DecideArgs, mb),
       TM_OFF(DecideArgs, text), TM_OFF(DecideArgs, entries), TM_OFF(DecideArgs, bb),
-      TM_OFF(DecideArgs, ctl), TM_OFF(DecideArgs, tok), TM_OFF(DecideArgs, n), TM_OFF(DecideArgs, N),
-      TM_OFF(DecideArgs, n_entries), TM_OFF(DecideArgs, has_delete), TM_OFF(DecideArgs, has_unk),
-      TM_OFF(DecideArgs, unk_token), TM_OFF(DecideArgs, lil_off), TM_OFF(DecideArgs, w3_shift),
+      TM_OFF(DecideArgs, ctl), TM_OFF(DecideArgs, tok), TM_OFF(DecideArgs, n),
+      TM_OFF(DecideArgs, literals), TM_OFF(DecideArgs, N), TM_OFF(DecideArgs, n_entries),
+      TM_OFF(DecideArgs, has_delete), TM_OFF(DecideArgs, lil_off), TM_OFF(DecideArgs, w3_shift),
       TM_OFF(DecideArgs, pad_),
       (int64_t)sizeof(tmk::FollowArgs), TM_OFF(FollowArgs, ctl), TM_OFF(FollowArgs, tok),
       TM_OFF(FollowArgs, recs), TM_OFF(FollowArgs, toks), TM_OFF(FollowArgs, done_all),

@@ -118,11 +118,13 @@ struct DecideArgs {
   uint32_t* ctl;                // (rows, N)
   uint32_t* tok;
   const int32_t* n;             // valid bytes, on the device
+  const int32_t* literals;      // [unk id, has unk, delete id] on the device
+                                // (ops/tables.py): a trainer candidate's,
+                                // so a captured score chain serves every
+                                // candidate
   int64_t N;
   int64_t n_entries;            // R*128
   int32_t has_delete;
-  int32_t has_unk;
-  int32_t unk_token;
   int32_t lil_off;
   int32_t w3_shift;             // S: tok = idx | w3 << S
   int32_t pad_;
@@ -695,7 +697,7 @@ TM_HD void decide_tile_at(const DecideArgs& a, const DecideNb* nb, int64_t p, in
   const int32_t adv = w3 == 0 ? first_len[0] : (w3 == 1 ? first_len[1] : first_len[2]);
   const int32_t new_pos_rel = found ? (any_branch ? adv : cur_len) : 1;
   const bool miss = !found && p < n;
-  const bool has_tok = found || (miss && a.has_unk);
+  const bool has_tok = found || (miss && TM_LDG(a.literals + 1));
   // an alternative branch may advance 0 bytes: at fd = 1 one of length 1
   // is the virtual space alone (go/tokenmonster.go i += len1 - fd), and
   // the chain goes on from (p, fd = 0); the JAX kernel clamps this to 1
@@ -703,7 +705,7 @@ TM_HD void decide_tile_at(const DecideArgs& a, const DecideNb* nb, int64_t p, in
   const int32_t delta_out = new_pos_rel < lo ? lo : (new_pos_rel > 63 ? 63 : new_pos_rel);
   const uint32_t ctl = (uint32_t)delta_out | (is_b ? (1u << 6) | (1u << 8) : 0u) |
                        (has_tok ? 1u << 7 : 0u) | (miss ? 1u << 9 : 0u);
-  const uint32_t tok = miss ? ((3u << a.w3_shift) | (uint32_t)a.unk_token)
+  const uint32_t tok = miss ? ((3u << a.w3_shift) | (uint32_t)TM_LDG(a.literals))
                             : ((uint32_t)cur_idx | ((uint32_t)w3 << a.w3_shift));
   a.ctl[fd * a.N + p] = ctl;
   a.tok[fd * a.N + p] = tok;

@@ -37,7 +37,8 @@ _I64 = ctypes.c_int64
 
 
 # ``n``, a dispatch's valid byte count, is a pointer to a device int32
-# in each struct that reads it (``scalar_arg``).
+# in each struct that reads it (``scalar_arg``); so are decide's unk id
+# and flag (``literals``, ``ops/tables.py``).
 class MatchArgs(ctypes.Structure):
     _fields_ = [("text", _P), ("fields", _P), ("disp", _P), ("single", _P),
                 ("space_single", _P), ("scalars", _P), ("desc", _P),
@@ -51,9 +52,9 @@ class MatchArgs(ctypes.Structure):
 class DecideArgs(ctypes.Structure):
     _fields_ = [("m", _P), ("mb", _P), ("text", _P), ("entries", _P),
                 ("bb", _P), ("ctl", _P), ("tok", _P), ("n", _P),
-                ("N", _I64), ("n_entries", _I64), ("has_delete", _I32),
-                ("has_unk", _I32), ("unk_token", _I32), ("lil_off", _I32),
-                ("w3_shift", _I32), ("pad_", _I32)]
+                ("literals", _P), ("N", _I64), ("n_entries", _I64),
+                ("has_delete", _I32), ("lil_off", _I32), ("w3_shift", _I32),
+                ("pad_", _I32)]
 
 
 class FollowArgs(ctypes.Structure):

@@ -39,8 +39,9 @@ def decide_plain(m: torch.Tensor, mb: torch.Tensor | None,
                  text: torch.Tensor, n, tabs: DeviceTables):
     """PyTorch version of the decide kernel.  ``m``/``mb``: int32 [N] match
     words (``mb`` None without a delete token); ``text``: uint8 [N]; ``n``:
-    an int or a 0-dim tensor.  Reads past N see zeros, as the JAX kernel's
-    zero margin rows do."""
+    an int or a 0-dim tensor.  The unk id and flag are read from
+    ``tabs.literals`` as the kernel reads them.  Reads past N see zeros, as
+    the JAX kernel's zero margin rows do."""
     N = m.numel()
     dev = m.device
     S = tabs.w3_shift
@@ -57,6 +58,7 @@ def decide_plain(m: torch.Tensor, mb: torch.Tensor | None,
         bF0 = meta[0][mbp >> 6]
         bF1 = meta[1][mbp >> 6]
     lil = tabs.lil_off
+    unk_token, has_unk = tabs.literals.long()[:2]
 
     def win(arr, delta):
         return arr[pos + delta.clamp(0, 127)]
@@ -131,14 +133,14 @@ def decide_plain(m: torch.Tensor, mb: torch.Tensor | None,
         new_pos_rel = torch.where(found, torch.where(any_branch, adv,
                                                      cur_len), 1)
         miss = ~found & (pos < n)
-        has_tok = found | (miss & tabs.has_unk)
+        has_tok = found | (miss & (has_unk != 0))
         # an alternative branch may advance 0 bytes (fd 1, an alternative
         # that is the virtual space alone); the JAX kernel clamps it to 1
         lo = torch.where(any_branch & (w3 > 0), 0, 1)
         ctl = (torch.maximum(new_pos_rel, lo).clamp(max=63)
                | (is_b * ((1 << 6) | (1 << 8)))
                | (has_tok * (1 << 7)) | (miss * (1 << 9)))
-        tok = torch.where(miss, (3 << S) | tabs.unk_token,
+        tok = torch.where(miss, (3 << S) | unk_token,
                           cur_idx | (w3 << S))
         return ctl.to(torch.int32), tok.to(torch.int32)
 
@@ -171,6 +173,7 @@ def decide(m: torch.Tensor, mb: torch.Tensor | None, text: torch.Tensor,
     _build.check(tabs.entries, "entries", torch.int32, dev,
                  (rows, tabs.entries.shape[1], 4))
     _build.check(tabs.bb, "bb", torch.int32, dev, (256,))
+    _build.check(tabs.literals, "literals", torch.int32, dev, (3,))
     n_t = _build.scalar_arg(n, "n", N, dev)
     ctl = torch.empty((rows, N), dtype=torch.int32, device=dev)
     tok = torch.empty((rows, N), dtype=torch.int32, device=dev)
@@ -178,9 +181,8 @@ def decide(m: torch.Tensor, mb: torch.Tensor | None, text: torch.Tensor,
         m=m.data_ptr(), mb=(mb if mb is not None else m).data_ptr(),
         text=text.data_ptr(), entries=tabs.entries.data_ptr(),
         bb=tabs.bb.data_ptr(), ctl=ctl.data_ptr(), tok=tok.data_ptr(),
-        n=n_t.data_ptr(), N=N, n_entries=tabs.entries.shape[1],
-        has_delete=int(tabs.has_delete),
-        has_unk=int(tabs.has_unk), unk_token=tabs.unk_token,
+        n=n_t.data_ptr(), literals=tabs.literals.data_ptr(), N=N,
+        n_entries=tabs.entries.shape[1], has_delete=int(tabs.has_delete),
         lil_off=tabs.lil_off, w3_shift=tabs.w3_shift)
     _build.launch("decide", args, dev)
     if rows == 1:

@@ -68,6 +68,10 @@ MAX_FUSED_DISPATCHES = 16   # dispatches in one captured graph (the JAX
                             # package's chain length of one jitted call)
 
 _log = logging.getLogger(__name__)
+# One capture at a time in the process: a capture begins by synchronising
+# the card, which fails while another thread's capture is under way (two
+# scoring slots on one card capture on their own threads)
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _bucket(n_lanes: int) -> int:
@@ -101,46 +105,73 @@ class Staged(NamedTuple):
     scalars: torch.Tensor
 
 
-class _Graph:
-    """The captured chain of one geometry: static inputs (text buffers,
-    scalars, the record skip into the first dispatch), the graph, its
-    outputs, and the launches of each kernel one replay runs."""
+class Batch(NamedTuple):
+    """Strips staged together on a device (``GpuTokenizer.stage_batch``),
+    the trainer's batch of up to 16 strips a device call: the strips,
+    lanes a dispatch and dispatches a strip (those of its longest strip),
+    each strip's own dispatch count, the buffers as one (batch, k, N)
+    uint8 tensor and the scalars the device reads, int32 (batch, k, 3)
+    rows of (n, last owned lane, final) with their host copy.  A strip's
+    dispatches past its own, and the rows past the strips, hold n = 0,
+    last lane 0 and final 1: nothing to score, and nothing that fails."""
+    strips: list
+    lanes: int
+    counts: list
+    text: torch.Tensor
+    scalars: torch.Tensor
+    host_scalars: np.ndarray
 
-    def __init__(self, k: int, width: int, device: torch.device):
-        self.text = torch.zeros((k, width), dtype=torch.uint8, device=device)
-        self.scalars = torch.zeros((k, 3), dtype=torch.int32, device=device)
-        self.start0 = torch.zeros((), dtype=torch.int64, device=device)
+    def strip(self, b: int) -> Staged:
+        """Strip ``b``'s own view of the staging: a ``Staged`` of its
+        dispatches at the batch's lanes, which ``run_repaired`` takes."""
+        k = self.counts[b]
+        bufs = [(self.text[b, d], int(self.host_scalars[b, d, 0]),
+                 int(self.host_scalars[b, d, 1])) for d in range(k)]
+        return Staged(len(self.strips[b]), self.lanes, bufs,
+                      self.text[b, :k], self.scalars[b, :k])
+
+
+class _Graph:
+    """A captured chain: its static inputs (name -> tensor), the graph, its
+    outputs, the launches of each kernel one replay runs, and the lock its
+    users hold from loading the inputs through reading the outputs
+    (``source`` names what the inputs hold where a caller skips loading
+    what they hold already; ``free`` is the event after the last user's
+    read, which the next load waits for on its own stream)."""
+
+    def __init__(self, inputs: dict):
+        self.inputs = inputs
         self.graph = None
         self.outputs = None
         self.launches = None
+        self.lock = threading.Lock()
+        self.source = None
+        self.free = None
 
-    def load(self, staged: Staged, g0: int, start0) -> None:
-        """Copy dispatches [g0, g0 + k) of ``staged`` into the inputs, on
-        the current stream; ``start0``: the record skip into the first
-        (None: 0)."""
-        k = self.text.shape[0]
-        self.text.copy_(staged.text[g0:g0 + k])
-        self.scalars.copy_(staged.scalars[g0:g0 + k])
-        if start0 is None:
-            self.start0.zero_()
-        else:
-            self.start0.copy_(start0)
+    def load(self, values: dict) -> None:
+        """Copy each of ``values`` into the input of its name, on the
+        current stream, once the last user's read is done."""
+        if self.free is not None:
+            torch.cuda.current_stream().wait_event(self.free)
+            self.free = None
+        for name, value in values.items():
+            self.inputs[name].copy_(value)
 
     def capture(self, body, stream: torch.cuda.Stream) -> None:
-        """Warm up ``body(text, scalars, start0)`` once on ``stream`` (what
-        runs before a capture, as PyTorch asks: kernel attributes set, the
-        library loaded, memory pooled), then capture it there.  The
-        warm-up's launches count; the capture's go to ``launches``, which
-        each replay counts.  A failed capture raises."""
+        """Warm up ``body(inputs)`` once on ``stream`` (what runs before a
+        capture, as PyTorch asks: kernel attributes set, the library
+        loaded, memory pooled), then capture it there.  The warm-up's
+        launches count; the capture's go to ``launches``, which each
+        replay counts.  A failed capture raises."""
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            body(self.text, self.scalars, self.start0)
+            body(self.inputs)
         torch.cuda.current_stream().wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         # thread_local: a scoring slot's thread may use the card meanwhile
-        with _build.tally() as counts, torch.cuda.graph(
+        with _CAPTURE_LOCK, _build.tally() as counts, torch.cuda.graph(
                 graph, stream=stream, capture_error_mode="thread_local"):
-            outputs = body(self.text, self.scalars, self.start0)
+            outputs = body(self.inputs)
         self.graph, self.outputs, self.launches = graph, outputs, counts
 
     def replay(self):
@@ -148,6 +179,12 @@ class _Graph:
         self.graph.replay()
         _build.add_launches(self.launches)
         return self.outputs
+
+    def release(self) -> None:
+        """Mark the outputs read, on the current stream: the next load
+        waits for this point."""
+        self.free = torch.cuda.Event()
+        self.free.record()
 
 
 def _recording(epilogue, grids: list):
@@ -206,6 +243,7 @@ class GpuTokenizer:
         self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
                         else None)     # the captures' side stream
         self._lock = threading.Lock()
+        self._graphs_lock = threading.Lock()   # creation and capture
 
     @property
     def launches(self) -> dict:
@@ -214,6 +252,22 @@ class GpuTokenizer:
     @property
     def captures(self) -> int:
         return len(self._graphs)
+
+    def graph(self, key, values: dict, body) -> _Graph:
+        """The captured chain of ``key``: at its first use, static inputs
+        shaped as ``values`` (name -> tensor) are loaded with them and
+        ``body(inputs)`` is captured on the side stream (the trainer's
+        score chain, ``parallel/score.py``; keys are tuples, the
+        tokenizer's of three).  Kept only once captured."""
+        with self._graphs_lock:
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = _Graph({name: torch.empty_like(v)
+                                for name, v in values.items()})
+                graph.load(values)
+                graph.capture(body, self._stream)
+                self._graphs[key] = graph
+            return graph
 
     @property
     def host_fallbacks(self) -> int:
@@ -279,6 +333,38 @@ class GpuTokenizer:
         bufs = [(dtext[r], int(scalars[r, 0]), int(scalars[r, 1]))
                 for r in range(k)]
         return Staged(n, L, bufs, dtext, dscalars)
+
+    def stage_batch(self, strips: list, batch: int) -> Batch:
+        """Stage up to ``batch`` strips (each non-empty) for one device
+        call, in one copy from pinned memory (host memory on the CPU):
+        each strip's dispatches as ``_plan`` cuts it, at the lanes of the
+        batch's longest strip.  A plan of one dispatch holds at any lane
+        count from its own, and a plan of several has ``MAX_LANES``
+        lanes, so every strip keeps its own dispatches and scores."""
+        plans = [self._plan(len(d)) for d in strips]
+        L = max(p[0] for p in plans)
+        k = max(len(p[1]) for p in plans)
+        width = -(-(L * self.chunk + MARGIN + 64) // GRAIN) * GRAIN
+        total = L * self.chunk + MARGIN
+        cuda = self.device.type == "cuda"
+        host = torch.empty(batch * k * (width + 12), dtype=torch.uint8,
+                           pin_memory=cuda)
+        h = host.numpy()
+        text = h[:batch * k * width].reshape(batch, k, width)
+        scalars = h[batch * k * width:].view(np.int32).reshape(batch, k, 3)
+        text[:] = 0
+        scalars[:] = (0, 0, 1)
+        for b, (data, (_L, plan)) in enumerate(zip(strips, plans)):
+            arr = np.frombuffer(bytes(data), np.uint8)
+            for d, (off, _exact, last_lane) in enumerate(plan):
+                sl = arr[off:off + total]
+                text[b, d, :len(sl)] = sl
+                scalars[b, d] = (len(sl), last_lane, int(d == len(plan) - 1))
+        dev = host.to(self.device, non_blocking=True) if cuda else host
+        return Batch(list(strips), L, [len(p[1]) for p in plans],
+                     dev[:batch * k * width].view(batch, k, width),
+                     dev[batch * k * width:].view(torch.int32).view(
+                         batch, k, 3), scalars.copy())
 
     def _compact(self, recs, toks, buf, start0, last_lane, final):
         """The tokenizer's epilogue: (start_next, (out, count, missing,
@@ -472,43 +558,45 @@ class GpuTokenizer:
             if flags.all():
                 return outs, full, repairs
 
-    def _graph(self, staged: Staged, g0: int, k: int, start0):
-        """The captured chain of ``k`` dispatches at ``staged``'s geometry
-        (fast record window), its inputs loaded from dispatch ``g0`` on;
-        captured here at its geometry's first use."""
-        key = (staged.lanes, k, False)
-        graph = self._graphs.get(key)
-        fresh = graph is None
-        if fresh:
-            graph = _Graph(k, staged.text.shape[1], self.device)
-        graph.load(staged, g0, start0)
-        if fresh:
-            lanes = staged.lanes
+    def _values(self, staged: Staged, g0: int, k: int, start0) -> dict:
+        """The static inputs of a chain of dispatches [g0, g0 + k) of
+        ``staged`` from the record skip ``start0`` (None: 0)."""
+        return {"text": staged.text[g0:g0 + k],
+                "scalars": staged.scalars[g0:g0 + k],
+                "start0": (torch.zeros((), dtype=torch.int64,
+                                       device=self.device)
+                           if start0 is None else start0)}
 
-            def body(text, scalars, s0):
-                grids = []
-                outs, start_next = self._chain(
-                    list(text), scalars, s0, lanes, False, self.tables,
-                    _recording(self._compact, grids), {})
-                return (*finish.finish(outs, self.tables, self.wide_ids),
-                        grids, start_next)
-            graph.capture(body, self._stream)
-            self._graphs[key] = graph
-        return graph
+    def _body(self, lanes: int):
+        """The tokenizer's captured chain of one geometry: the dispatches
+        on ``inputs``, then their finishing."""
+        def body(inputs):
+            grids = []
+            outs, start_next = self._chain(
+                list(inputs["text"]), inputs["scalars"], inputs["start0"],
+                lanes, False, self.tables,
+                _recording(self._compact, grids), {})
+            return (*finish.finish(outs, self.tables, self.wide_ids),
+                    grids, start_next)
+        return body
 
     def _run_captured(self, staged: Staged):
         """The text's chain as replays of captured graphs, groups of up to
         ``MAX_FUSED_DISPATCHES`` dispatches, the record skip carried on the
-        device from one group to the next.  Returns (meta (5, k) int32,
-        [(ids, delete bits, dispatches)] a group, grids)."""
+        device from one group to the next; one graph a (lanes, dispatches,
+        record window) key, captured at its first use.  Returns (meta (5,
+        k) int32, [(ids, delete bits, dispatches)] a group, grids)."""
         k = len(staged.bufs)
         metas, parts, grids, start0 = [], [], [], None
         index = self.device.index    # None: the current device, as is
         with torch.cuda.device(-1 if index is None else index):
             for g0 in range(0, k, MAX_FUSED_DISPATCHES):
                 kg = min(MAX_FUSED_DISPATCHES, k - g0)
-                meta, ids, bits, gr, start0 = self._graph(
-                    staged, g0, kg, start0).replay()
+                values = self._values(staged, g0, kg, start0)
+                graph = self.graph((staged.lanes, kg, False), values,
+                                   self._body(staged.lanes))
+                graph.load(values)
+                meta, ids, bits, gr, start0 = graph.replay()
                 if g0 + kg < k:     # a later group may replay this graph
                     meta, ids, start0 = meta.clone(), ids.clone(), \
                         start0.clone()

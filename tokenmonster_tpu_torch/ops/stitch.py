@@ -221,7 +221,7 @@ def device_stitch_compact(recs: torch.Tensor, toks: torch.Tensor, start0,
 
 def device_stitch_score(recs: torch.Tensor, emit: torch.Tensor,
                         text: torch.Tensor, start0, last_lane, final,
-                        n_ids: int, chunk: int, delete_token: int = 0):
+                        n_ids: int, chunk: int, delete_token=0):
     """Trainer epilogue of one dispatch: chars-covered scores over the
     spliced record stream, on its device with no host sync.  Port of
     ``tokenmonster_tpu/ops/stitch.py::device_stitch_score`` (XLA there),
@@ -232,9 +232,11 @@ def device_stitch_score(recs: torch.Tensor, emit: torch.Tensor,
     advance.
 
     ``emit``: int32 (T, L) candidate id of each record; ``text``: the
-    dispatch buffer the record positions index.  Returns (scores int64
-    [n_ids], n_tokens, miss_mask int64 [256], start_next, sync_ok); ids
-    outside [0, n_ids) are dropped, as scatters in JAX drop them."""
+    dispatch buffer the record positions index; ``delete_token``: an int
+    or a 0-dim integer tensor on the grid's device (a candidate's
+    ``literals``, read there).  Returns (scores int64 [n_ids], n_tokens,
+    miss_mask int64 [256], start_next, sync_ok); ids outside [0, n_ids)
+    are dropped, as scatters in JAX drop them."""
     flags, keep, start_next, sync_ok, _s, _e = stitched_keep(
         recs, start0, last_lane, final)
     T, L = recs.shape
@@ -254,8 +256,10 @@ def device_stitch_score(recs: torch.Tensor, emit: torch.Tensor,
     ids = torch.where(has_tok & (ids < n_ids), ids, n_ids).reshape(-1)
     scores = torch.zeros(n_ids + 1, dtype=torch.int64, device=dev)
     scores.index_add_(0, ids, torch.where(has_tok, covered, 0).reshape(-1))
-    if 0 <= delete_token < n_ids:
-        scores[delete_token] += n_del
+    d = (delete_token.long() if isinstance(delete_token, torch.Tensor)
+         else torch.full((), delete_token, dtype=torch.int64, device=dev))
+    d = torch.where((d >= 0) & (d < n_ids), d, n_ids)
+    scores.index_add_(0, d.reshape(1), n_del.reshape(1))
     mb_pos = prev.clamp(0, text.numel() - 1)
     mb = torch.where(miss, text[mb_pos].long(), 256).reshape(-1)
     miss_mask = torch.zeros(257, dtype=torch.int64, device=dev)

@@ -392,11 +392,27 @@ def meta_width(n: int) -> int:
     return max(8, -(-n // 128 // 8) * 8) * 128
 
 
-def _vocab_config(tabs, vocab, literals: bool = True) -> None:
+def bucket_width(n: int) -> int:
+    """Slots of a trainer candidate's padded tables (``CandidateTables``)
+    for ``n`` tokens: rows of 128, a power of two of rows, at least 8, as
+    the JAX package buckets a REMAP candidate's planes and ids
+    (``tokenmonster_tpu/train/score_helpers.py``), so candidates of one
+    bucket share a captured score chain."""
+    rows = 8
+    while rows * 128 < n:
+        rows <<= 1
+    return rows * 128
+
+
+def _vocab_config(tabs, vocab, literals: bool = True) -> torch.Tensor:
     """The per-vocabulary kernel scalars: literal ids and row layout.
     ``literals``: check that the unk and delete ids fit the decide
     kernel's literal field of ``tabs.w3_shift`` bits (not for match-only
-    superset tables, whose candidates bring their own)."""
+    superset tables, whose candidates bring their own).  Returns the
+    literals the device reads, int32 [unk id, has unk, delete id] on the
+    host: decide's unk word and the score epilogue's delete id, read
+    through a pointer, so that one captured score chain serves every
+    candidate of a superset."""
     tabs.lil_off = 2 if vocab.charset == 2 else 1
     tabs.has_delete = vocab.delete_token != DOES_NOT_EXIST
     tabs.has_unk = vocab.unk_token != DOES_NOT_EXIST
@@ -411,6 +427,8 @@ def _vocab_config(tabs, vocab, literals: bool = True) -> None:
     if tabs.has_space != tabs.has_delete:
         raise ValueError("hash tables carry the space-stripped entries "
                          "iff the vocabulary has a delete token")
+    return torch.tensor([tabs.unk_token, int(tabs.has_unk),
+                         tabs.delete_token], dtype=torch.int32)
 
 
 class DeviceTables(nn.Module):
@@ -423,7 +441,9 @@ class DeviceTables(nn.Module):
     Decide: the two meta planes (``meta``, what the plain version
     indexes), the kernel's table built from them (``decide_entries``) and
     the begin-byte table.  Id resolution:
-    ``ids3``.  All integer buffers hold u32 bit patterns as int32.
+    ``ids3``.  ``literals``: the unk id, whether there is an unk token,
+    and the delete id (``_vocab_config``).  All integer buffers hold u32
+    bit patterns as int32.
     ``w3_shift``: S of the token words (``w3_shift``), which decide,
     follow, compact and id resolution take from here.
 
@@ -478,7 +498,15 @@ class DeviceTables(nn.Module):
         self.classes = tables.classes
         self.max_len = len(len_cls) - 1
         self.has_space = bool(tables.has_space)
-        _vocab_config(self, vocab, literals=not self.match_only)
+        self.register_buffer("literals", _vocab_config(
+            self, vocab, literals=not self.match_only))
+
+
+# The tensors a trainer candidate brings to its superset's match tables
+# (``CandidateTables``): what a captured score chain copies in before each
+# replay.
+PER_CANDIDATE = ("fields", "single", "space_single", "scalars", "meta",
+                 "entries", "bb", "ids3", "rank", "literals")
 
 
 class CandidateTables:
@@ -492,15 +520,20 @@ class CandidateTables:
 
     Per candidate, uploaded to the superset's device: the alive-masked
     ``fields``, ``single``, ``space_single`` and ``scalars``, with their
-    superset counterparts' shapes and types; its ``meta`` planes
-    (``meta_width(n)`` slots), ``ids3`` (n rows) and ``bb``, at candidate
-    indices (its ``entries`` are built there from the planes); ``rank``,
-    int32 per superset index, each live index's candidate index, through
-    which the tokenizer maps every match word before decide
-    (``ops/scan.py::remap_matches``); its unk and delete ids.  Shared with
-    the superset and never written: ``disp``, ``desc``, ``len_cls``,
-    ``ovf_keys``, the key filter and the host geometry.  Any other shape
-    raises ValueError; a candidate of MAX_ENTRIES entries or more raises
+    superset counterparts' shapes and types; its ``meta`` planes (2,
+    ``bucket_width(n)``), ``ids3`` (``bucket_width(n)``, 3) and ``bb``,
+    at candidate indices, zero past its n entries (its ``entries``,
+    (rows, ``bucket_width(n)``, 4), are built there from the planes);
+    ``rank``, int32 per superset index, each live index's candidate
+    index, through which the tokenizer maps every match word before
+    decide (``ops/scan.py::remap_matches``); its unk and delete ids, on
+    the host and as ``literals`` on the device.  So every
+    tensor of a candidate has a shape fixed by its superset and its
+    bucket (``PER_CANDIDATE``), which a captured score chain takes as
+    static inputs.  Shared with the superset and never written: ``disp``,
+    ``desc``, ``len_cls``, ``ovf_keys``, the key filter and the host
+    geometry.  Any other shape raises ValueError; a candidate of
+    MAX_ENTRIES entries or more raises
     NotImplementedError: a candidate's token words are W3_SHIFT words, as
     every trainer candidate (a vocabulary of a trainer's size) fits
     them."""
@@ -530,8 +563,9 @@ class CandidateTables:
                "ids3": ids3_c.view(np.int32), "rank": rank}
         want = {k: (tuple(getattr(base, k).shape), getattr(base, k).dtype)
                 for k in ("fields", "single", "space_single", "scalars")}
-        want.update(meta=((2, meta_width(n)), torch.int32),
-                    bb=((256,), torch.int32), ids3=((n, 3), torch.int32),
+        want.update(meta=((2, bucket_width(n)), torch.int32),
+                    bb=((256,), torch.int32),
+                    ids3=((bucket_width(n), 3), torch.int32),
                     rank=((base.n_entries,), torch.int32))
         for name, arr in own.items():
             t = _t(arr)
@@ -545,7 +579,7 @@ class CandidateTables:
         self.entries = decide_entries(
             self.meta, 2 if vocab.delete_token != DOES_NOT_EXIST else 1)
         self.w3_shift = W3_SHIFT
-        _vocab_config(self, vocab)
+        self.literals = _vocab_config(self, vocab).to(base.fields.device)
 
 
 def space_prefix(vocab) -> bytes | None:
@@ -556,7 +590,7 @@ def space_prefix(vocab) -> bytes | None:
     return b" \x00" if vocab.charset == 2 else b" "
 
 
-def upload_tables(vocab, hashmatch_tables=None, device="cpu",
+def upload_tables(vocab, hashmatch_tables=None, device="cuda",
                   match_only: bool = False) -> DeviceTables:
     """Carry a vocabulary's kernel tables (``match_only``: its match
     tables) to ``device``.  The hash-match tables are a numpy placement

@@ -12,10 +12,11 @@ superset position among the live ones; that is checked for every
 candidate, and a candidate the superset does not fit gets None (the
 trainer then scores it on tables of its own).  The masking runs in host
 numpy through ``hashmatch.compose_fields(c, alive)``, as in the JAX
-package.  The JAX package pads a REMAP candidate's planes and ids to a
-power of two of rows for its compiled shapes, and keeps a second mode
-that places them at superset positions; here they keep their own size,
-in the one mode.
+package.  A candidate's planes and ids are padded to a power of two of
+rows (``tables.bucket_width``), as the JAX package pads them in its REMAP
+mode, so candidates of one bucket share one captured score chain; the
+JAX package's second mode, which places them at superset positions, is
+not kept.
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ import numpy as np
 from ..core.tokenmeta import DOES_NOT_EXIST
 from ..ops.hashmatch import HashMatchTables
 from ..ops.scan import GpuTokenizer
-from ..ops.tables import (W3_SHIFT, CandidateTables, build_meta_planes,
-                          flat_tables, ids3, smem_scalars, w3_shift)
+from ..ops.tables import (W3_SHIFT, CandidateTables, bucket_width,
+                          build_meta_planes, flat_tables, ids3, smem_scalars,
+                          w3_shift)
 
 
 @dataclass(frozen=True)
@@ -45,7 +47,8 @@ class Superset:
 def candidate_runtime_state(sup: Superset, cand) -> CandidateTables | None:
     """The candidate's kernel tables, on the superset's device:
     alive-masked match tables, the candidate's meta planes, begin-byte
-    table and ids3 at its own indices, ``rank``, the alive-rank of each
+    table and ids3 at its own indices (planes and ids padded with zeros
+    to ``bucket_width`` slots), ``rank``, the alive-rank of each
     superset index (``cumsum(alive) - 1``, 0 where it is dead), and its
     delete id (``.delete_token``); or None where the superset does not
     fit the candidate (``candidate_host_state``)."""
@@ -91,6 +94,11 @@ def candidate_host_state(sup: Superset, cand) -> tuple | None:
     rank = (np.cumsum(alive) - 1).astype(np.int32)
     rank[~alive] = 0
     planes, bb = build_meta_planes(cand)
+    width = bucket_width(n_c)
+    planes_cap = np.zeros((2, width), np.int32)
+    planes_cap[:, :n_c] = planes.reshape(2, -1)[:, :n_c]
+    ids_cap = np.zeros((width, 3), np.uint32)
+    ids_cap[:n_c] = ids3(cand)
     return (cand, flat_tables(sup.hashmatch, alive),
-            smem_scalars(sup.hashmatch, alive), planes.reshape(2, -1), bb,
-            ids3(cand), rank)
+            smem_scalars(sup.hashmatch, alive), planes_cap, bb, ids_cap,
+            rank)

@@ -70,7 +70,7 @@ from ..ops import tables
 from ..ops.hashmatch import build_hashmatch
 from ..ops.scan import GpuTokenizer
 from ..parallel import multihost
-from ..parallel.score import Slot, score_slots, score_strips
+from ..parallel.score import EAGER_CAUSES, Slot, score_slots, score_whole
 from .getalltokens import load_tokens_file, save_tokens_with_scores
 from .score_helpers import Superset, candidate_host_state
 
@@ -175,7 +175,12 @@ class GpuCandidateScorer(CandidateScorer):
     once a call and uploaded to each scoring device; those calls are
     counted in ``own_table_scores``.  Every byte is scored on the device:
     a junction whose lanes share no state is repaired there
-    (``parallel/score.py``), counted in ``repairs``.  With ``pool`` (as
+    (``parallel/score.py``), counted in ``repairs``.  A candidate on the
+    superset is scored 16 strips a device call, on a card one replay of a
+    captured graph a batch; what runs op by op instead (a candidate on
+    its own tables, a split strip's share, a strip scored again) is
+    counted in ``eager_scores`` by cause (``parallel/score.py``'s
+    ``EAGER_CAUSES``).  With ``pool`` (as
     ``train_vocab`` builds it), ``set_specials`` also prepares ``pool``
     plus the specials; a later ``set_specials`` keeps the superset, and
     candidates holding specials it lacks take their own tables.
@@ -202,10 +207,15 @@ class GpuCandidateScorer(CandidateScorer):
         self._slots = ([Slot(d) for d in self.devices]
                        if len(self.devices) > 1 or self.world > 1 else None)
         self.repairs = 0
-        self.own_table_scores = 0
+        self.eager_scores = dict.fromkeys(EAGER_CAUSES, 0)
         self._pool = pool
         self._sup = None
         self._count_lock = threading.Lock()
+
+    @property
+    def own_table_scores(self) -> int:
+        """The candidates scored on their own tables."""
+        return self.eager_scores["own_tables"]
 
     def set_specials(self, specials):
         specials = frozenset(specials)
@@ -263,14 +273,15 @@ class GpuCandidateScorer(CandidateScorer):
                 tk = self._sup.tokenizer if slot is None else slot.tokenizer
                 return tk, tables.CandidateTables(tk.tables, *state)
         if self._slots is None:
-            scores, n_tokens, miss_mask, repairs = score_strips(
+            scores, n_tokens, miss_mask, repairs, eager = score_whole(
                 *arm(None), datasets, n_ids)
         else:
-            scores, n_tokens, miss_mask, repairs = score_slots(
+            scores, n_tokens, miss_mask, repairs, eager = score_slots(
                 self._slots, arm, datasets, n_ids, self.rank, self.world)
         with self._count_lock:
             self.repairs += repairs
-            self.own_table_scores += state is None
+            for cause, count in eager.items():
+                self.eager_scores[cause] += count
         return scores, n_tokens, {int(b) for b in np.nonzero(miss_mask)[0]}
 
     def _own_tables(self, cand):
