@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tokenmonster_tpu_torch import load, tracing
 from tokenmonster_tpu_torch.corpus import (main_dispatch, one_row_vocab,
                                            stdlib_text)
 from tokenmonster_tpu_torch.core.vocab import Vocab
@@ -1058,3 +1059,27 @@ def test_failed_score_capture_raises(cuda, monkeypatch):
     want = native_score(cand, strips)
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1:] == want[1:] and sc._sup.tokenizer.captures == 1
+
+
+def test_wait_span_on_card(cuda):
+    """On a card the host's waits for it are spans of their own: a
+    ``wait`` under ``device`` for the metadata read and one for the ids'
+    download, each counting the bytes it read, beside ``stage``,
+    ``launch`` and ``expand``."""
+    v = load(os.path.join(ROOT, "examples", "realtext-32000-fast.vocab"),
+             device=cuda, route="device")
+    text = "The quick brown fox jumps over the lazy dog. " * 400
+    v.tokenize(text)                    # the geometry's capture
+    tracing.clear()
+    try:
+        with tracing.enable():
+            ids = v.tokenize(text)
+        recs = tracing.records()
+    finally:
+        tracing.clear()
+    (dev,) = [r for r in recs if r.name == "device"]
+    under = [r for r in recs if r.parent == dev.id]
+    waits = [r for r in under if r.name == "wait"]
+    assert len(waits) == 2 and all(w.n > 0 for w in waits)
+    assert {r.name for r in under} == {"stage", "launch", "wait", "expand"}
+    assert next(r for r in under if r.name == "expand").n == len(ids)

@@ -176,3 +176,36 @@ def test_parallel_scan_when_chains_never_meet(capcode, threads):
         np.testing.assert_array_equal(one, want)
         np.testing.assert_array_equal(got, want)
         assert miss == one_miss == want_miss == jax_miss
+
+
+@pytest.mark.parametrize("level", [2, 1])
+@pytest.mark.parametrize("text", [b"1a" * 300, b"A." * 300,
+                                  b"0xFF 0xAB9c " * 40 + b"2b" * 100,
+                                  "ÉA.ü1".encode() * 60, b"1a" * 8],
+                         ids=["digit_letter", "caps_after_stop", "hex",
+                              "accents", "fills_2n_plus_16"])
+def test_capcode_encoders_past_twice_the_input(level, text):
+    """Encodings longer than twice their input (capcode encodes "1a" as
+    "D 1D a", three bytes a byte) come whole from the port's native
+    encoders, equal to the JAX package's Python encoders (its native ones
+    size their output at 2n + 16 bytes, so they are patched out); the
+    port's native library wrote past such a buffer and returned it cut
+    short."""
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ toolchain")
+    from unittest import mock
+
+    from tokenmonster_tpu import native as jnative
+    from tokenmonster_tpu.core import capcode as jcc
+    from tokenmonster_tpu_torch import native
+
+    name, encode = {2: ("native_capcode_encode", jcc.encode),
+                    1: ("native_nocapcode_encode", jcc.no_capcode_encode)}[
+                        level]
+    got = getattr(native, name)(text)
+    assert got is not None
+    with mock.patch.object(jnative, name, lambda data: None):
+        want = encode(text)
+    assert got == want
+    if (level, text[:2]) == (2, b"1a"):
+        assert len(got) == 3 * len(text)

@@ -30,6 +30,7 @@ import time
 
 import numpy as np
 
+from . import tracing
 from .core.tokenmeta import DOES_NOT_EXIST
 from .core.vocab import Vocab as _CoreVocab
 from .native import NativeVocab
@@ -329,20 +330,23 @@ class Vocab:
         and "device" raises for it."""
         if isinstance(item, str):
             item = item.encode("utf-8")
-        normalized = self._core.normalize(item)
-        auto = self.route == "auto"
-        candidate = (auto and len(normalized) >= self.TPU_THRESHOLD
-                     and len(self._core.tokens) <= tables.placement_limit())
-        if self.route == "device" or (candidate
-                                      and self._pick_route() == "tpu"):
-            route, ids = "device", self._device_ids(normalized, timed=auto)
-        else:
-            route, ids = "native", self._native_ids(normalized,
-                                                    timed=candidate)
-        with self._route_lock:
-            self.last_route = route
-            self.route_counts[route] += 1
-        return ids.astype(self._ids_dtype())
+        with tracing.root("tokenize", len(item)):
+            normalized = self._core.normalize(item)
+            auto = self.route == "auto"
+            candidate = (auto and len(normalized) >= self.TPU_THRESHOLD
+                         and len(self._core.tokens)
+                         <= tables.placement_limit())
+            if self.route == "device" or (candidate
+                                          and self._pick_route() == "tpu"):
+                route, ids = "device", self._device_ids(normalized,
+                                                        timed=auto)
+            else:
+                route, ids = "native", self._native_ids(normalized,
+                                                        timed=candidate)
+            with self._route_lock:
+                self.last_route = route
+                self.route_counts[route] += 1
+            return ids.astype(self._ids_dtype())
 
     def _device_ids(self, normalized: bytes, timed: bool) -> np.ndarray:
         """Ids from the device path; ``timed`` records its measured rate,

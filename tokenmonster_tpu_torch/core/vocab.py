@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import tracing
 from ..utils.runes import decode_rune
 from . import capcode as cc
 from .binio import Reader, Writer
@@ -36,7 +37,10 @@ def apply_capcode(data: bytes, using_capcode: int) -> bytes:
 def normalize_and_capcode(data: bytes, using_capcode: int,
                           normalizer: Normalizer) -> bytes:
     """go/tokenmonster.go:242-253."""
-    return apply_capcode(normalizer.normalize(data), using_capcode)
+    with tracing.span("nfd", len(data)):
+        data = normalizer.normalize(data)
+    with tracing.span("capcode", len(data)):
+        return apply_capcode(data, using_capcode)
 
 
 def normalize_safe(b: bytes, using_capcode: int, normalizer: Normalizer) -> bytes:

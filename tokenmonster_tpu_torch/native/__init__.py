@@ -120,10 +120,12 @@ def _load(so):
     lib.tm_sorted_windows.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p]
-    for name in ("tm_capcode_encode", "tm_nocapcode_encode"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int64
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    lib.tm_capcode_encode.restype = ctypes.c_int64
+    lib.tm_capcode_encode.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                      ctypes.c_void_p, ctypes.c_int64]
+    lib.tm_nocapcode_encode.restype = ctypes.c_int64
+    lib.tm_nocapcode_encode.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                        ctypes.c_void_p]
     for name in ("tm_capcode_decode", "tm_nocapcode_decode"):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int64
@@ -343,6 +345,10 @@ def native_sorted_windows(data: np.ndarray, n: int, width: int,
 
 
 def native_capcode_encode(data: bytes) -> bytes | None:
+    """Into a buffer of 2n + 16 bytes, or, where the encoding is longer
+    (capcode can triple a text: "1a" encodes as "D 1D a"; the encoder
+    then writes no byte past the buffer and returns the length), once more
+    into one of the length it returned."""
     lib = get_lib()
     if lib is None:
         return None
@@ -350,18 +356,23 @@ def native_capcode_encode(data: bytes) -> bytes | None:
     n = len(data)
     src = np.frombuffer(data, np.uint8)
     out = np.empty(2 * n + 16, np.uint8)
-    m = lib.tm_capcode_encode(src.ctypes.data, n, out.ctypes.data)
+    m = lib.tm_capcode_encode(src.ctypes.data, n, out.ctypes.data, len(out))
+    if m > len(out):
+        out = np.empty(m, np.uint8)
+        m = lib.tm_capcode_encode(src.ctypes.data, n, out.ctypes.data, m)
     return out[:m].tobytes()
 
 
 def native_nocapcode_encode(data: bytes) -> bytes | None:
+    """Into a buffer of 3n + 16 bytes: each code point is copied after at
+    most one two-byte marker."""
     lib = get_lib()
     if lib is None:
         return None
     ensure_tables(lib)
     n = len(data)
     src = np.frombuffer(data, np.uint8)
-    out = np.empty(2 * n + 16, np.uint8)
+    out = np.empty(3 * n + 16, np.uint8)
     m = lib.tm_nocapcode_encode(src.ctypes.data, n, out.ctypes.data)
     return out[:m].tobytes()
 

@@ -713,6 +713,13 @@ inline int enc(uint32_t cp, uint8_t* o) {
   return 4;
 }
 
+// enc's output length for cp, branch-free so that a sum over a buffer
+// vectorises.
+inline int enc_len(uint32_t cp) {
+  int v = cp < 0x110000;
+  return 1 + (v & (cp >= 0x80)) + (v & (cp >= 0x800)) + (v & (cp >= 0x10000));
+}
+
 inline bool cls_valid(uint32_t cp) { return cp < 0x110000; }
 inline bool c_letter(uint32_t cp) { return cls_valid(cp) && pl_letter(cp); }
 inline bool c_upper(uint32_t cp) { return cls_valid(cp) && pl_upper(cp); }
@@ -738,11 +745,14 @@ void tm_set_tables(const uint8_t* props, const uint32_t* lower,
   g_upper = upper;
 }
 
-// capcode level-2 encode over UTF-8 bytes.  out capacity must be >=
-// 2*n + 16 bytes.  Returns output length.
+// capcode level-2 encode over UTF-8 bytes into out, which holds cap bytes.
+// Returns the output's length, and writes no byte past cap (where the
+// length is over cap, the caller calls again with room for it: "1a"
+// encodes as "D 1D a").
 // Port of javascript/tokenmonster.js:900-1005 at codepoint granularity:
 // the retro-fixup loop operates on a codepoint buffer.
-int64_t tm_capcode_encode(const uint8_t* in, int64_t n, uint8_t* out) {
+int64_t tm_capcode_encode(const uint8_t* in, int64_t n, uint8_t* out,
+                          int64_t cap) {
   std::vector<uint32_t> buf;
   buf.reserve((size_t)n + (size_t)n / 2 + 8);
   int64_t goback_pos = 0, word_token_pos = 0;
@@ -842,12 +852,27 @@ int64_t tm_capcode_encode(const uint8_t* in, int64_t n, uint8_t* out) {
     rlast2 = rlast;
     rlast = r;
   }
+  // Write, unchecked, as many code points as surely fit (4 bytes each at
+  // most); once fewer than 64 surely do, count what is left first.
   int64_t pos = 0;
-  for (uint32_t cp : buf) pos += enc(cp, out + pos);
+  const size_t m = buf.size();
+  for (size_t i = 0; i < m;) {
+    size_t fit = (size_t)((cap - pos) / 4);
+    if (fit < 64) {
+      int64_t need = pos;
+      for (size_t j = i; j < m; ++j) need += enc_len(buf[j]);
+      if (need > cap) return need;
+      fit = m - i;
+    }
+    for (const size_t end = std::min(m, i + fit); i < end; ++i)
+      pos += enc(buf[i], out + pos);
+  }
   return pos;
 }
 
-// capcode level-1 encode (0x7F delete token), no case transform.
+// capcode level-1 encode (0x7F delete token), no case transform.  out
+// capacity must be >= 3*n bytes (each input code point is copied as it is,
+// after at most one 2-byte marker).  Returns output length.
 int64_t tm_nocapcode_encode(const uint8_t* in, int64_t n, uint8_t* out) {
   int64_t pos = 0;
   uint32_t rlast = '.', rlast2 = '.';

@@ -49,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..native import NativeVocab
 from . import _build, finish
 from .decide import decide
@@ -308,31 +309,32 @@ class GpuTokenizer:
         ``stop``: stage only those dispatches of the text's plan (a share
         of a long strip scored on several devices); the final flag stays
         the whole text's."""
-        n = len(data)
-        arr = np.frombuffer(bytes(data), np.uint8)
-        L, plan = self._plan(n)
-        picked = range(len(plan))[first:stop]
-        total = L * self.chunk + MARGIN
-        width = -(-(total + 64) // GRAIN) * GRAIN
-        k = len(picked)
-        cuda = self.device.type == "cuda"
-        host = torch.empty(k * width + 12 * k, dtype=torch.uint8,
-                           pin_memory=cuda)
-        h = host.numpy()
-        text = h[:k * width].reshape(k, width)
-        scalars = h[k * width:].view(np.int32).reshape(k, 3)
-        for r, i in enumerate(picked):
-            off, _exact, last_lane = plan[i]
-            sl = arr[off:off + total]
-            text[r, :len(sl)] = sl
-            text[r, len(sl):] = 0
-            scalars[r] = (len(sl), last_lane, int(i == len(plan) - 1))
-        dev = host.to(self.device, non_blocking=True) if cuda else host
-        dtext = dev[:k * width].view(k, width)
-        dscalars = dev[k * width:].view(torch.int32).view(k, 3)
-        bufs = [(dtext[r], int(scalars[r, 0]), int(scalars[r, 1]))
-                for r in range(k)]
-        return Staged(n, L, bufs, dtext, dscalars)
+        with tracing.span("stage") as sp:
+            n = len(data)
+            arr = np.frombuffer(bytes(data), np.uint8)
+            L, plan = self._plan(n)
+            picked = range(len(plan))[first:stop]
+            total = L * self.chunk + MARGIN
+            width = -(-(total + 64) // GRAIN) * GRAIN
+            k = sp.n = len(picked)
+            cuda = self.device.type == "cuda"
+            host = torch.empty(k * width + 12 * k, dtype=torch.uint8,
+                               pin_memory=cuda)
+            h = host.numpy()
+            text = h[:k * width].reshape(k, width)
+            scalars = h[k * width:].view(np.int32).reshape(k, 3)
+            for r, i in enumerate(picked):
+                off, _exact, last_lane = plan[i]
+                sl = arr[off:off + total]
+                text[r, :len(sl)] = sl
+                text[r, len(sl):] = 0
+                scalars[r] = (len(sl), last_lane, int(i == len(plan) - 1))
+            dev = host.to(self.device, non_blocking=True) if cuda else host
+            dtext = dev[:k * width].view(k, width)
+            dscalars = dev[k * width:].view(torch.int32).view(k, 3)
+            bufs = [(dtext[r], int(scalars[r, 0]), int(scalars[r, 1]))
+                    for r in range(k)]
+            return Staged(n, L, bufs, dtext, dscalars)
 
     def stage_batch(self, strips: list, batch: int) -> Batch:
         """Stage up to ``batch`` strips (each non-empty) for one device
@@ -625,7 +627,9 @@ class GpuTokenizer:
             h.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        done.synchronize()
+        with tracing.span("wait") as sp:
+            done.synchronize()
+            sp.n = sum(h.nbytes for h in host)
         return [h.numpy() for h in host]
 
     def _held(self, outs) -> np.ndarray:
@@ -645,10 +649,13 @@ class GpuTokenizer:
             if bits is not None:
                 want.append(bits[:-(-total // 8)])
         got = iter(self._read(want))
-        out = [finish.host_ids(next(got), next(got) if bits is not None
-                               else None, total, self.tables.delete_token)
-               for (_ids, bits, _kg), total in zip(parts, totals)]
-        return out[0] if len(out) == 1 else np.concatenate(out)
+        with tracing.span("expand") as sp:
+            out = [finish.host_ids(next(got), next(got) if bits is not None
+                                   else None, total, self.tables.delete_token)
+                   for (_ids, bits, _kg), total in zip(parts, totals)]
+            ids = out[0] if len(out) == 1 else np.concatenate(out)
+            sp.n = len(ids)
+        return ids
 
     def tokenize_staged(self, staged: Staged, data: bytes):
         """Run the device pipeline on ``data`` staged (``stage(data)``) and
@@ -669,18 +676,22 @@ class GpuTokenizer:
         with self._lock:
             run = (self._run_eager if self.device.type == "cpu"
                    else self._run_captured)
-            meta_dev, parts, grids = run(staged)
+            with tracing.span("launch") as sp:
+                meta_dev, parts, grids = run(staged)
+                sp.n = len(parts)
             meta = self._read([meta_dev])[0]
             flags, full = _held_flags(meta), False
             if not flags.all():
-                outs, full, repairs = self.run_repaired(
-                    staged, data, self.tables, self._compact, self._held,
-                    flags, grids)
-                self.repairs += repairs
-                meta_dev, ids, bits = finish.finish(outs, self.tables,
-                                                    self.wide_ids)
-                parts = [(ids, bits, len(outs))]
-                meta = self._read([meta_dev])[0]
+                with tracing.span("rerun") as sp:
+                    outs, full, repairs = self.run_repaired(
+                        staged, data, self.tables, self._compact,
+                        self._held, flags, grids)
+                    self.repairs += repairs
+                    meta_dev, ids, bits = finish.finish(outs, self.tables,
+                                                        self.wide_ids)
+                    parts = [(ids, bits, len(outs))]
+                    meta = self._read([meta_dev])[0]
+                    sp.n = repairs
             del grids
             counts, missings, syncs = meta[0], meta[1], meta[2]
             if not syncs.all():
@@ -692,10 +703,11 @@ class GpuTokenizer:
         """Tokenize normalized+capcoded bytes; returns (ids u32, missing)."""
         if len(data) == 0 or self.vocab.max_token_length == 0:
             return np.zeros(0, np.uint32), 0
-        res = self.tokenize_staged(self.stage(data), data)
-        if not isinstance(res, str):
-            return res
-        ids, missing = NativeVocab(self.vocab).tokenize(bytes(data))
+        with tracing.span("device", len(data)):
+            res = self.tokenize_staged(self.stage(data), data)
+            if not isinstance(res, str):
+                return res
+            ids, missing = NativeVocab(self.vocab).tokenize(bytes(data))
         if missing == 0 or self.tables.has_unk:
             raise RuntimeError("a kept record emitted no token, but the text "
                                "has no byte the vocabulary lacks: a fault of "
