@@ -22,8 +22,8 @@ VOCAB = os.path.join(ROOT, "examples", "realtext-1024-fast.vocab")
 TEXT = ("The quick brown fox jumps over the lazy dog. Ünïcödé café, "
         "naïve ÉCOLE. ") * 40
 CHILDREN = {"nfd": "tokenize", "capcode": "tokenize", "device": "tokenize",
-            "stage": "device", "launch": "device", "rerun": "device",
-            "expand": "device"}
+            "unicodedata": "nfd", "stage": "device", "launch": "device",
+            "rerun": "device", "expand": "device"}
 
 
 @pytest.fixture(autouse=True)
@@ -88,10 +88,28 @@ def test_enable_records_one_call_tree(vocab):
         "tokenize"}
     normalized = vocab._core.normalize(raw)
     assert named["tokenize"].n == named["nfd"].n == len(raw)
+    assert named["unicodedata"].n == len(raw)     # dense: the whole text
     assert named["device"].n == len(normalized)
     assert named["capcode"].n == len(vocab._core.normalizer.normalize(raw))
     assert named["stage"].n == named["launch"].n == 1
     assert named["expand"].n == len(ids)
+
+
+def test_unicodedata_span_counts_the_runs_it_is_handed(vocab):
+    """A long text with few runs of non-ASCII bytes hands unicodedata only
+    the runs, joined by one byte each; an ASCII text opens no span."""
+    runs = ["é", "ï", "Ωμέγα", "ﬁ½"]
+    text = "".join(r + " plain ASCII between the runs. " * 20 for r in runs)
+    assert len(text.encode()) >= 2048
+    with tracing.enable():
+        vocab.tokenize(text)
+        vocab.tokenize("ASCII only. " * 200)
+    recs = tracing.records()
+    named = _tree([r for r in recs if r.call == recs[-1].call])
+    assert "unicodedata" not in named
+    named = _tree([r for r in recs if r.call != recs[-1].call])
+    joined = "\n".join(runs).encode()
+    assert named["unicodedata"].n == len(joined)
 
 
 def test_list_items_keep_their_own_trees(vocab):

@@ -22,9 +22,11 @@ lowercase / NFD.  Flag value 1 exactly means "NFD only".
 from __future__ import annotations
 
 import unicodedata
+from itertools import pairwise
 
 import numpy as np
 
+from .. import tracing
 from ..utils.chartypes import MARK_MN, props_table
 
 NFD = 1
@@ -73,18 +75,84 @@ def specified_lowercase(flag: int) -> bool:
     return bool(flag & LOWERCASE)
 
 
+# A text is normalized run by run only from RUNS_MIN_BYTES bytes on, and
+# only while it holds at most one run of bytes >= 0x80 in RUNS_SPARSITY
+# bytes; else whole, where numpy's fixed cost or the cost of each run
+# outweighs the ASCII that the runs skip (the CPU timings that set both:
+# PERF.md, section 6).
+RUNS_MIN_BYTES = 2048
+RUNS_SPARSITY = 96
+# Joins the runs for one unicodedata call: no run holds it (each byte of a
+# run is >= 0x80) and no NFD of a non-ASCII code point does.
+_SEP = b"\n"
+# A text is scanned for runs this many bytes at a time: an ASCII block
+# costs one bytes.isascii, another's arrays stay in the cache, and a dense
+# text goes whole after its first blocks.
+_BLOCK = 1 << 16
+
+
 def _nfd(b: bytes) -> bytes:
-    if not b:
+    """NFD of UTF-8 ``b``; ``b`` itself where it is ASCII or not UTF-8.
+
+    An ASCII character is a starter that decomposes to itself, and
+    canonical reordering never moves a mark across a starter, so the NFD
+    of a text is its ASCII bytes as they are with the NFD of each maximal
+    run of bytes >= 0x80 in place.  A long text with few runs hands only
+    its runs to unicodedata; the rest the whole text."""
+    if b.isascii():  # pure ASCII is NFD-invariant
         return b
-    arr = np.frombuffer(b, dtype=np.uint8)
-    if not (arr & 0x80).any():  # pure ASCII is NFD-invariant
-        return b
+    cuts = _sparse_runs(b) if len(b) >= RUNS_MIN_BYTES else None
+    if cuts is not None:
+        return _nfd_runs(b, cuts)
     s = b.decode("utf-8", errors="surrogateescape")
     try:
-        return unicodedata.normalize("NFD", s).encode("utf-8")
+        with tracing.span("unicodedata", len(b)):
+            s = unicodedata.normalize("NFD", s)
+        return s.encode("utf-8")
     except ValueError:
         # Lone surrogates (invalid UTF-8 input) cannot be normalised.
         return b
+
+
+def _sparse_runs(b: bytes):
+    """Where ``b`` holds at most one run of bytes >= 0x80 in
+    ``RUNS_SPARSITY`` bytes, the offsets that cut it into ASCII stretches
+    and runs in turn, from 0 to ``len(b)`` (a stretch at either end may be
+    empty); else None, as soon as a block shows it."""
+    x = np.frombuffer(b, dtype=np.int8)  # bytes >= 0x80 are negative
+    first, last = int(x[0] < 0), int(x[-1] < 0)
+    most = 2 * (len(b) // RUNS_SPARSITY) - first - last  # edges
+    edges, seen = [], 0
+    for i in range(0, len(b) - 1, _BLOCK):
+        if b[i:i + _BLOCK + 1].isascii():
+            continue
+        h = x[i:i + _BLOCK + 1] < 0
+        got = np.flatnonzero(h[1:] != h[:-1])
+        seen += len(got)
+        if seen > most:
+            return None
+        edges.append(got + (i + 1))
+    return ([0] * (1 + first) + np.concatenate(edges).tolist()
+            + [len(b)] * (1 + last))
+
+
+def _nfd_runs(b: bytes, cuts: list) -> bytes:
+    """``_nfd`` through one unicodedata call on the runs that ``cuts``
+    (``_sparse_runs``) marks."""
+    segs = [b[i:j] for i, j in pairwise(cuts)]
+    joined = _SEP.join(segs[1::2])
+    try:
+        # Invalid UTF-8 lies inside the runs, so it fails here as the
+        # whole text would.
+        s = joined.decode("utf-8")
+    except UnicodeDecodeError:
+        return b
+    with tracing.span("unicodedata", len(joined)):
+        t = unicodedata.normalize("NFD", s)
+    if t == s:  # the runs, so the text, are NFD already
+        return b
+    segs[1::2] = t.encode("utf-8").split(_SEP)
+    return b"".join(segs)
 
 
 def _lowercase(b: bytes) -> bytes:

@@ -8,6 +8,9 @@ that boundary.  The sites and what each ``n`` counts:
 
     tokenize   api.Vocab._tokenize_one (a call's root)       raw bytes
       nfd        the normalizer's pass (NFD, if set)         bytes in
+        unicodedata  core.normalize._nfd's NFD call: the      bytes handed
+                     text's runs of non-ASCII bytes, or the   to it
+                     whole text (no span for ASCII)
       capcode    the capcode encoder                         bytes in
       device     ops.scan.GpuTokenizer.tokenize              bytes in
         stage      plan, pinned buffer, host copy, upload    dispatches
