@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from tokenmonster_tpu.core import normalize as jnorm
+from tokenmonster_tpu.utils import chartypes as jchartypes
 from tokenmonster_tpu_torch.core import normalize as tnorm
 from tokenmonster_tpu_torch.corpus import stdlib_text
 
@@ -33,6 +34,18 @@ def _spaced(n: int, runs: int, mark: str) -> bytes:
     gap = (n - runs * len(m)) // runs
     return b"".join(_fill(gap) + m for _ in range(runs)) + _fill(
         n - runs * (gap + len(m)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_char_tables():
+    """The JAX package's character tables (``accents`` reads them), built
+    in this process rather than read from its on-disk cache: that cache is
+    written through one shared temporary name, so on a fresh checkout
+    test processes that first read it at the same time can replace each
+    other's half-written file.  Built here, this module neither reads nor
+    writes that file."""
+    if jchartypes._CACHE is None:
+        jchartypes._CACHE = jchartypes._build()
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,8 @@
 reads no clock, ``enable()`` and a running profiler record each call's
 tree on its own thread, on the profiler's clock; the buffer's bound
 counts what it drops; a rerun is recorded, a host fallback is not; a
-span opened outside a call (the trainer's staging) records nothing."""
+span opened outside a call records nothing; the trainer's spans record
+under its ``round`` and ``candidate`` roots, and cost no clock off."""
 
 import importlib.util
 import os
@@ -16,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 import tokenmonster_tpu_torch
 from tokenmonster_tpu_torch import tracing
 from tokenmonster_tpu_torch.core.vocab import Vocab
+from torch_cases import pool_file  # noqa: F401 (fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = os.path.join(ROOT, "examples", "realtext-1024-fast.vocab")
@@ -181,9 +183,8 @@ def test_root_opened_off_records_nothing_under_it():
 
 
 def test_span_outside_a_call_records_nothing(vocab):
-    """The trainer stages and reads through the tokenizer's own methods,
-    outside any ``tokenize`` call: recording on, those spans are not
-    kept."""
+    """A caller that stages and reads through the tokenizer's own methods,
+    outside any root: recording on, those spans are not kept."""
     raw = vocab._core.normalize(TEXT.encode())
     with tracing.enable():
         with tracing.span("stage"):
@@ -246,3 +247,81 @@ def test_rerun_recorded_and_fallback_unspanned(tmp_path):
     names = {r.name for r in tracing.records()}
     assert names == {"tokenize", "nfd", "capcode", "device", "stage",
                      "launch"}
+
+
+TRAINER = {"prune": "round", "select": "round", "build": "candidate",
+           "mask": "candidate", "score": "candidate", "rescore": "candidate",
+           "readback": "score", "stage": "score", "launch": "score"}
+
+
+def _rounds(pool_file, out, rounds=2):
+    """Seeded ``train_vocab`` rounds on the CPU; returns the rounds the
+    ``on_round`` hook saw."""
+    from tokenmonster_tpu_torch.train import trainvocab as tv
+    corpus, tok = pool_file
+    seen = []
+    tv.train_vocab(corpus, tok, str(out),
+                   tv.TrainConfig(vocab_size=120, workers=2, fast=True,
+                                  seed=7, max_rounds=rounds),
+                   device="cpu", on_round=seen.append)
+    return seen
+
+
+def test_trainer_spans_record_under_round_and_candidate_roots(pool_file,
+                                                              tmp_path):
+    """Each round is a ``round`` root on the master thread with its list
+    work and votes under it; each candidate a ``candidate`` root on a
+    worker thread with its build, masking, score (staging, replays, read
+    back) and rescoring; no span records outside those roots, and each
+    ``n`` counts its work."""
+    with tracing.enable():
+        seen = _rounds(pool_file, tmp_path)
+    recs = tracing.records()
+    by_id = {r.id: r for r in recs}
+    roots = [r for r in recs if r.parent is None]
+    assert sorted(r.name for r in roots) == sorted(
+        ["round"] * 2 + ["candidate"] * 4)
+    masters = {r.thread for r in roots if r.name == "round"}
+    assert len(masters) == 1
+    assert not masters & {r.thread for r in roots if r.name == "candidate"}
+    for r in recs:
+        root = by_id[r.call]
+        assert root.parent is None and root.thread == r.thread
+        if r.parent is not None:
+            assert by_id[r.parent].name == TRAINER[r.name], r.name
+            assert by_id[r.parent].start <= r.start <= r.end
+    names = [r.name for r in recs]
+    assert {"prune", "select", "build", "mask", "score", "readback",
+            "stage", "launch", "rescore"} <= set(names) <= set(TRAINER) | {
+                "round", "candidate"}
+    assert names.count("prune") == 4 and names.count("select") == 4
+    rounds = [r for r in roots if r.name == "round"]
+    assert [r.n for r in rounds] == [2, 2]
+    cands = [r for r in roots if r.name == "candidate"]
+    scored = [c for r in seen for c in r.candidates]
+    assert sorted(c.n for c in cands) == sorted(
+        sum(map(len, c.datasets)) for c in scored)
+    strips = sum(len(c.datasets) for c in scored)
+    assert sum(r.n for r in recs if r.name == "score") == strips
+    assert sum(r.n for r in recs if r.name == "rescore") == \
+        seen[-1].counters["strips_rescored"]
+    assert sum(r.n for r in recs if r.name == "select") == sum(
+        len(r.deleted) for r in seen)
+    assert all(r.n > 0 for r in recs if r.name in ("mask", "readback",
+                                                   "build", "stage"))
+
+
+def test_trainer_spans_off_record_nothing_and_read_no_clock(
+        pool_file, tmp_path, monkeypatch):
+    """Off, the trainer's span sites read no clock (one that raises is
+    never called) and the rounds are those of a run with them on."""
+    def no_clock():
+        raise AssertionError("a span read the clock while off")
+    monkeypatch.setattr(tracing, "time", SimpleNamespace(time_ns=no_clock))
+    off = _rounds(pool_file, tmp_path / "off")
+    monkeypatch.undo()
+    assert tracing.records() == []
+    with tracing.enable():
+        on = _rounds(pool_file, tmp_path / "on")
+    assert [(r.removed, sorted(r.deleted)) for r in off] == [
+        (r.removed, sorted(r.deleted)) for r in on]

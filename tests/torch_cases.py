@@ -1,7 +1,8 @@
 """Shared inputs of the tokenmonster_tpu_torch tests: the vocabularies the
 port is held on, texts for them made from seeded numpy, the hash-match
-tables both packages are given, and ``heal_jax_native``, which loads the
-JAX package's native library safely before a test reaches it."""
+tables both packages are given, ``heal_jax_native``, which loads the
+JAX package's native library safely before a test reaches it, and the
+trainer tests' small pool (``pool_file``)."""
 
 import fcntl
 import os
@@ -33,6 +34,27 @@ ENGLISH = (
     b"int main() { printf(\"hello world\\n\"); return 0; } // C code\n"
     b"def f(x):\n    return x * 2  # python\n"
 )
+
+SEED_TEXT = (b"The quick brown fox jumps over the lazy dog. The dog sleeps "
+             b"while the fox runs through the forest; every morning the sun "
+             b"rises over the mountains and the birds sing their songs. ")
+
+
+@pytest.fixture(scope="module")
+def pool_file(tmp_path_factory):
+    """(corpus, path) of the trainer tests' small seeded run: the port's
+    getalltokens pool of ``SEED_TEXT`` * 40 (capcode 2, NFD, balanced)."""
+    from tokenmonster_tpu_torch.train.getalltokens import (get_all_tokens,
+                                                           save_tokens_file)
+    corpus = SEED_TEXT * 40
+    counter, char_table, header = get_all_tokens(
+        corpus, "balanced", charset=1, normalization="nfd", using_capcode=2,
+        min_occur_total=10, min_occur_singles=1, chunk_size=1 << 20,
+        micro_chunks=1, add_extra_tokens=False)
+    path = tmp_path_factory.mktemp("pool") / "all.tok"
+    save_tokens_file(path, counter, char_table, header)
+    return corpus, str(path)
+
 
 U16_WORDS = ["jump", "ser", "er", "s", "ing", "box", "vow", "judge", "ge",
              "in", "rve", "serve", "inger"]

@@ -72,6 +72,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.scan import Batch, GpuTokenizer, _recording
 from ..ops.stitch import device_stitch_score
 from ..ops.tables import PER_CANDIDATE
@@ -143,17 +144,30 @@ def _sum_outs(outs):
 
 
 def _repair(tk: GpuTokenizer, staged, data: bytes, tabs, epilogue, flags,
-            grids):
+            grids, acc):
     """Score one strip whose first pass (fast window, ``flags`` and
     ``grids`` as ``GpuTokenizer.run_recorded`` gave them) did not hold,
     through ``GpuTokenizer.run_repaired``: on the full window where a lane
-    overflowed, with repair lanes where a splice did not hold.  Returns
-    (scores, n_tokens, miss_mask) as numpy and the repairs made."""
+    overflowed, with repair lanes where a splice did not hold.  Its
+    (scores, n_tokens, miss_mask) are added on the device to ``acc``, which
+    the caller reads once (``_read_sums``) after its last strip; returns
+    the repairs made."""
     outs, _full, repairs = tk.run_repaired(
         staged, data, tabs, epilogue,
-        lambda outs: _sum_outs(outs)[3].cpu().numpy(), flags, grids)
-    s, nt, mm, _flags = _sum_outs(outs)
-    return s.cpu().numpy(), int(nt), mm.cpu().numpy(), repairs
+        lambda outs: torch.stack([torch.stack([o[4].bool(), o[3]])
+                                  for o in outs]).cpu().numpy(),
+        flags, grids)
+    for a, v in zip(acc, _sum_outs(outs)):
+        a += v
+    return repairs
+
+
+def _read_sums(acc, n_ids: int):
+    """Device sums ``acc`` [scores, n_tokens, miss_mask] in one read-back:
+    (scores int64 [n_ids], n_tokens, miss_mask int64 [256]) on the host."""
+    host = torch.cat([acc[0][:n_ids], acc[1].reshape(1), acc[2]]
+                     ).cpu().numpy()
+    return host[:n_ids], int(host[n_ids]), host[n_ids + 1:]
 
 
 def score_strips(tk: GpuTokenizer, tabs, datasets, n_ids: int):
@@ -170,35 +184,44 @@ def score_strips(tk: GpuTokenizer, tabs, datasets, n_ids: int):
     acc_t = torch.zeros(1, dtype=torch.int64, device=dev)
     acc_m = torch.zeros(256, dtype=torch.int64, device=dev)
     strips, all_flags = [], []
-    for data in datasets:
-        if len(data) == 0:
-            continue
-        staged = tk.stage(data)
-        outs, grids = tk.run_recorded(staged, False, tabs, epilogue, {})
-        s, nt, mm, flags = _sum_outs(outs)
-        ok = flags.all()
-        acc_s += torch.where(ok, s, 0)
-        acc_t += torch.where(ok, nt, 0)
-        acc_m += torch.where(ok, mm, 0)
-        strips.append((data, staged, flags, grids))
-        all_flags.append(flags.all(0))
-    if not strips:
-        return np.zeros(n_ids, np.int64), 0, np.zeros(256, np.int64), 0
-    host = torch.cat([acc_s, acc_t, acc_m,
-                      torch.stack(all_flags).reshape(-1).long()]).cpu().numpy()
+    with tracing.span("score", sum(1 for d in datasets if len(d))):
+        for data in datasets:
+            if len(data) == 0:
+                continue
+            staged = tk.stage(data)
+            outs, grids = tk.run_recorded(staged, False, tabs, epilogue, {})
+            s, nt, mm, flags = _sum_outs(outs)
+            ok = flags.all()
+            acc_s += torch.where(ok, s, 0)
+            acc_t += torch.where(ok, nt, 0)
+            acc_m += torch.where(ok, mm, 0)
+            strips.append((data, staged, flags, grids))
+            all_flags.append(flags.all(0))
+        if not strips:
+            return np.zeros(n_ids, np.int64), 0, np.zeros(256, np.int64), 0
+        with tracing.span("readback") as sp:
+            host = torch.cat([acc_s, acc_t, acc_m,
+                              torch.stack(all_flags).reshape(-1).long()]
+                             ).cpu().numpy()
+            sp.n = host.nbytes
     scores, n_tokens = host[:n_ids].copy(), int(host[n_ids])
     miss_mask = host[n_ids + 1:n_ids + 257].copy()
-    repairs = 0
-    for (data, staged, flags, grids), (done, sync) in zip(
-            strips, host[n_ids + 257:].reshape(-1, 2)):
-        if done and sync:
-            continue
-        s, nt, mm, r = _repair(tk, staged, data, tabs, epilogue,
-                               flags.cpu().numpy(), grids)
-        scores += s
-        n_tokens += nt
-        miss_mask += mm
-        repairs += r
+    repairs = again = 0
+    with tracing.span("rescore") as sp:
+        acc = [acc_s.zero_(), acc_t.zero_(), acc_m.zero_()]
+        for (data, staged, flags, grids), (done, sync) in zip(
+                strips, host[n_ids + 257:].reshape(-1, 2)):
+            if done and sync:
+                continue
+            repairs += _repair(tk, staged, data, tabs, epilogue,
+                               flags.cpu().numpy(), grids, acc)
+            again += 1
+        sp.n = again
+        if again:
+            s, nt, mm = _read_sums(acc, n_ids)
+            scores += s
+            n_tokens += nt
+            miss_mask += mm
     return scores, n_tokens, miss_mask, repairs
 
 
@@ -242,10 +265,11 @@ def _run_eager(tk: GpuTokenizer, tabs, batch: Batch, n_ids: int, acc):
     """A batch's score chain op by op on ``tabs``: its sums added to
     ``acc`` [scores, n_tokens, miss_mask]; returns (flags, recs, starts)
     as ``_batch_sums`` gives them."""
-    scores, n_tok, miss, *rest = _batch_sums(
-        tk, tabs, batch.text, batch.scalars, batch.lanes, n_ids)
-    for a, v in zip(acc, (scores, n_tok, miss)):
-        a += v
+    with tracing.span("launch", 1):
+        scores, n_tok, miss, *rest = _batch_sums(
+            tk, tabs, batch.text, batch.scalars, batch.lanes, n_ids)
+        for a, v in zip(acc, (scores, n_tok, miss)):
+            a += v
     return rest
 
 
@@ -272,7 +296,8 @@ def _run_captured(tk: GpuTokenizer, tabs, batch: Batch, n_ids: int, acc):
         return _batch_sums(tk, static, inputs["text"], inputs["scalars"],
                            lanes, n_ids)
     index = tk.device.index      # None: the current device, as is
-    with torch.cuda.device(-1 if index is None else index):
+    with torch.cuda.device(-1 if index is None else index), \
+            tracing.span("launch", 1):
         graph = tk.graph(key, {**values, **tables}, body)
         with graph.lock:
             if graph.source is None or graph.source() is not tabs:
@@ -305,34 +330,44 @@ def score_batched(tk: GpuTokenizer, tabs, datasets, n_ids: int):
         return np.zeros(n_ids, np.int64), 0, np.zeros(256, np.int64), 0, 0
     run = _run_captured if dev.type == "cuda" else _run_eager
     batch = batch_size(len(strips))
-    acc = [torch.zeros(cap, dtype=torch.int64, device=dev),
-           torch.zeros((), dtype=torch.int64, device=dev),
-           torch.zeros(256, dtype=torch.int64, device=dev)]
-    kept = []
-    for g in range(0, len(strips), batch):
-        staged = tk.stage_batch(strips[g:g + batch], batch)
-        kept.append((staged, *run(tk, tabs, staged, cap, acc)))
-    host = torch.cat([acc[0], acc[1].reshape(1), acc[2]]
-                     + [f.reshape(-1).long() for _b, f, _r, _s in kept]
-                     ).cpu().numpy()
-    scores, n_tokens = host[:n_ids].copy(), int(host[cap])
-    miss_mask = host[cap + 1:cap + 257].copy()
-    at, repairs, again = cap + 257, 0, 0
+    with tracing.span("score", len(strips)):
+        acc = [torch.zeros(cap, dtype=torch.int64, device=dev),
+               torch.zeros((), dtype=torch.int64, device=dev),
+               torch.zeros(256, dtype=torch.int64, device=dev)]
+        kept = []
+        for g in range(0, len(strips), batch):
+            with tracing.span("stage") as sp:
+                staged = tk.stage_batch(strips[g:g + batch], batch)
+                sp.n = sum(staged.counts)
+            kept.append((staged, *run(tk, tabs, staged, cap, acc)))
+        with tracing.span("readback") as sp:
+            host = torch.cat([acc[0][:n_ids], acc[1].reshape(1), acc[2]]
+                             + [f.reshape(-1).long() for _b, f, _r, _s in kept]
+                             ).cpu().numpy()
+            sp.n = host.nbytes
+    scores, n_tokens = host[:n_ids].copy(), int(host[n_ids])
+    miss_mask = host[n_ids + 1:n_ids + 257].copy()
+    at, repairs, again = n_ids + 257, 0, 0
     epilogue = score_epilogue(tabs, cap, tk.chunk)
-    for staged, flags, recs, starts in kept:
-        held = host[at:at + flags.numel()].reshape(flags.shape) != 0
-        at += flags.numel()
-        for b, k in enumerate(staged.counts):
-            if held[b, :k].all():
-                continue
-            grids = [(recs[b, d], starts[b, d]) for d in range(k)]
-            s, nt, mm, r = _repair(tk, staged.strip(b), staged.strips[b],
-                                   tabs, epilogue, held[b, :k], grids)
-            scores += s[:n_ids]
+    with tracing.span("rescore") as sp:
+        for a in acc:       # now the sums of the strips scored again
+            a.zero_()
+        for staged, flags, recs, starts in kept:
+            held = host[at:at + flags.numel()].reshape(flags.shape) != 0
+            at += flags.numel()
+            for b, k in enumerate(staged.counts):
+                if held[b, :k].all():
+                    continue
+                grids = [(recs[b, d], starts[b, d]) for d in range(k)]
+                repairs += _repair(tk, staged.strip(b), staged.strips[b],
+                                   tabs, epilogue, held[b, :k], grids, acc)
+                again += 1
+        if again:
+            s, nt, mm = _read_sums(acc, n_ids)
+            scores += s
             n_tokens += nt
             miss_mask += mm
-            repairs += r
-            again += 1
+        sp.n = again
     return scores, n_tokens, miss_mask, repairs, again
 
 

@@ -1,10 +1,12 @@
-"""Spans of the tokenizer path, on the clock of ``torch.profiler``'s trace.
+"""Spans of the tokenizer path and of the trainer, on the clock of
+``torch.profiler``'s trace.
 
-A span is one pass through a layer boundary of ``Vocab.tokenize``: its
-name, start and end (``time.time_ns()``, the clock of the profiler's
-device events, so a span and a kernel line up), the span it opened
-inside, the call it belongs to, its thread and ``n``, the work counted at
-that boundary.  The sites and what each ``n`` counts:
+A span is one pass through a layer boundary of ``Vocab.tokenize`` or of
+``train_vocab``'s loop: its name, start and end (``time.time_ns()``, the
+clock of the profiler's device events, so a span and a kernel line up),
+the span it opened inside, the call it belongs to, its thread and ``n``,
+the work counted at that boundary.  The tokenizer's sites and what each
+``n`` counts:
 
     tokenize   api.Vocab._tokenize_one (a call's root)       raw bytes
       nfd        the normalizer's pass (NFD, if set)         bytes in
@@ -20,8 +22,31 @@ that boundary.  The sites and what each ``n`` counts:
                                                              repairs made
         expand     the host's delete expansion of the ids    ids out
 
+The trainer's (``train/trainvocab.py``; a round's master thread and each
+worker thread that scores a candidate open roots of their own):
+
+    round      a round of train_vocab's loop (master's root)  candidates
+      prune      the list work: the shuffle and candidate     tokens in
+                 draw, then the prune and checkpoints         the pool
+      select     the master's read of one candidate's result:
+                 deletion votes, best tracking                votes
+    candidate  _evaluate: one candidate (a worker's root;     strip bytes
+               under round where the master scores it)
+      build      the candidate vocabulary (scorer.build)      tokens
+      mask       host masking (score_helpers.                  superset
+                 candidate_host_state) and the upload of the  entries
+                 candidate's tables
+      score      parallel.score: the strips' batches, each    strips
+                 staged (stage: dispatches) and replayed
+                 (launch: one a batch), and the sums read back
+        readback   the one read of a candidate's sums         bytes
+      rescore    the strips whose first pass did not hold,    strips
+                 scored again op by op                        rescored
+
 A layer's self time is its span less its children's (normalization's
-whole is ``nfd`` plus ``capcode``).  Operator's use::
+whole is ``nfd`` plus ``capcode``; a candidate's is ``build``, ``mask``,
+``score`` and ``rescore`` with the host's work between them).  Operator's
+use::
 
     from tokenmonster_tpu_torch import tracing
     with tracing.enable():
@@ -34,8 +59,9 @@ Recording is on while some ``enable()`` holds it on, and while a
 sets ``torch.autograd.profiler._is_profiler_enabled``), so a profiled
 window gets the program's spans with no other switch.  The switch is read
 when a call's root opens (``root``); the spans under it follow the root,
-and a ``span`` opened outside any call (the trainer stages and reads
-through the same methods) records nothing.  Off, a span site reads no
+and a ``span`` opened outside any root (a scoring slot's thread of a
+candidate split over several devices, a caller of ``score_strips``)
+records nothing.  Off, a span site reads no
 clock: a child reads one thread-local attribute, a root also the two
 switches, and marks its thread while it is open.  Records stay in
 memory, at most ``CAPACITY``; once it is full each further record is

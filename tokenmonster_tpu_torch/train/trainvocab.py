@@ -57,10 +57,12 @@ import random
 import tempfile
 import threading
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import capcode as cc
 from ..core.normalize import Normalizer
 from ..core.vocab import Vocab, normalize_and_capcode
@@ -99,6 +101,59 @@ class TrainConfig:
     backend: str = "cuda"           # the device; "native" scores on the host
     seed: int | None = None
     max_rounds: int | None = None   # extension: bound total rounds (tests)
+
+
+class Scored(NamedTuple):
+    """One candidate a round scored, as the master read it: the candidate
+    vocabulary (``reverse`` maps its ids to tokens), its work type (0
+    deletion votes, 1 ranking), the strips it scored (the normalized
+    corpus whole after midway), the scores by id, the tokens in text, the
+    missing byte values, the ``remaining_plus`` its votes
+    (``_select_deletions``) were drawn at and the token list the
+    vocabulary was built from (singles, tokens and specials, encoded)."""
+    vocab: Vocab
+    work_type: int
+    datasets: list
+    scores: np.ndarray
+    tokens_in_text: int
+    missing: set
+    remaining_plus: int
+    tokens: list
+
+
+class Round(NamedTuple):
+    """What ``train_vocab``'s ``on_round`` hook is handed at the end of a
+    round: its number (from 1), the tokens voted out ({token: votes}; the
+    loop removed each of them from the pool), how many tokens the pool
+    lost (``removed``), the count the round's log line gives
+    (``remaining``: tokens left with the singles and specials), the phase
+    reached once it ended ("", "midway", "x2" or "final"), the candidates
+    it scored in the order the master read them, the settings the votes
+    were drawn with (``vocab_size``, ``midway_target``, ``fast``, the
+    normalized ``specials``) and the scorer's counters
+    (``scorer_counters``) so far."""
+    number: int
+    deleted: dict
+    removed: int
+    remaining: int
+    phase: str
+    candidates: list
+    vocab_size: int
+    midway_target: int
+    fast: bool
+    specials: frozenset
+    counters: dict
+
+
+def scorer_counters(scorer) -> dict:
+    """A device scorer's counters: strips scored (``strips_scored``) and,
+    of them, scored again op by op (``strips_rescored``: a strip whose
+    first pass did not hold, or a split strip's share that did not); {}
+    for the host scorer."""
+    if not isinstance(scorer, GpuCandidateScorer):
+        return {}
+    return {"strips_scored": scorer.strips_scored,
+            "strips_rescored": scorer.eager_scores["repair"]}
 
 
 class CandidateScorer:
@@ -180,7 +235,8 @@ class GpuCandidateScorer(CandidateScorer):
     captured graph a batch; what runs op by op instead (a candidate on
     its own tables, a split strip's share, a strip scored again) is
     counted in ``eager_scores`` by cause (``parallel/score.py``'s
-    ``EAGER_CAUSES``).  With ``pool`` (as
+    ``EAGER_CAUSES``); the strips scored, in ``strips_scored``.  With
+    ``pool`` (as
     ``train_vocab`` builds it), ``set_specials`` also prepares ``pool``
     plus the specials; a later ``set_specials`` keeps the superset, and
     candidates holding specials it lacks take their own tables.
@@ -207,6 +263,7 @@ class GpuCandidateScorer(CandidateScorer):
         self._slots = ([Slot(d) for d in self.devices]
                        if len(self.devices) > 1 or self.world > 1 else None)
         self.repairs = 0
+        self.strips_scored = 0
         self.eager_scores = dict.fromkeys(EAGER_CAUSES, 0)
         self._pool = pool
         self._sup = None
@@ -264,21 +321,26 @@ class GpuCandidateScorer(CandidateScorer):
         values) of ``cand`` over ``datasets``: on the prepared superset's
         masked tables where it fits ``cand``, else on ``cand``'s own."""
         n_ids = len(cand.reverse)
-        state = (None if self._sup is None
-                 else candidate_host_state(self._sup, cand))
-        if state is None:
-            arm = self._own_tables(cand)
-        else:
-            def arm(slot):
-                tk = self._sup.tokenizer if slot is None else slot.tokenizer
-                return tk, tables.CandidateTables(tk.tables, *state)
+        with tracing.span("mask", 0 if self._sup is None
+                          else len(self._sup.vocab.tokens)):
+            state = (None if self._sup is None
+                     else candidate_host_state(self._sup, cand))
+            if state is None:
+                arm = self._own_tables(cand)
+            else:
+                def arm(slot):
+                    tk = (self._sup.tokenizer if slot is None
+                          else slot.tokenizer)
+                    return tk, tables.CandidateTables(tk.tables, *state)
+            armed = arm(None) if self._slots is None else None
         if self._slots is None:
             scores, n_tokens, miss_mask, repairs, eager = score_whole(
-                *arm(None), datasets, n_ids)
+                *armed, datasets, n_ids)
         else:
             scores, n_tokens, miss_mask, repairs, eager = score_slots(
                 self._slots, arm, datasets, n_ids, self.rank, self.world)
         with self._count_lock:
+            self.strips_scored += sum(1 for d in datasets if len(d))
             self.repairs += repairs
             for cause, count in eager.items():
                 self.eager_scores[cause] += count
@@ -431,13 +493,21 @@ def _select_deletions(cand: Vocab, scores, vocab_size, remaining_plus,
 
 
 def train_vocab(dataset: bytes, dictionary_path, results_dir,
-                config: TrainConfig, device="cuda"):
+                config: TrainConfig, device="cuda", on_round=None):
     """Run the distillation training loop.  Returns the best .tok path.
     With ``config.backend == "cuda"`` every candidate is scored by a
     ``GpuCandidateScorer`` on ``device`` ("cuda": the kernels on every
     visible card; "cuda:k" one card; "cpu": their plain PyTorch versions;
     a list: one scoring slot each), armed on ``superset_pool`` of the
     pool plus the loop's specials.
+
+    ``on_round(round)``, if given, is called on the master thread at the
+    end of each round that ends with the loop going on: after its prune
+    and checkpoints, outside its ``round`` span, with a ``Round`` (the
+    round's number, deletions, remaining count and candidates' results).
+    A true return stops the loop at that boundary, as ``max_rounds``
+    would, and ``train_vocab`` returns as it does then.  The hook changes
+    nothing the loop decides: without one the rounds are the same.
 
     In a process group of several ranks (``parallel/multihost.py``) every
     rank calls it with the same arguments: the scorer splits each
@@ -458,14 +528,15 @@ def train_vocab(dataset: bytes, dictionary_path, results_dir,
             cfg, seed=int(multihost.all_reduce_sum(np.array([seed]))[0]))
     if rank == 0:
         return _train_vocab(dataset, dictionary_path, results_dir, cfg,
-                            device)
+                            device, on_round)
     with tempfile.TemporaryDirectory(prefix=f"tm_rank{rank}_") as scratch:
-        best = _train_vocab(dataset, dictionary_path, scratch, cfg, device)
+        best = _train_vocab(dataset, dictionary_path, scratch, cfg, device,
+                            on_round)
     return best and os.path.join(results_dir, os.path.basename(best))
 
 
 def _train_vocab(dataset: bytes, dictionary_path, results_dir,
-                 cfg: TrainConfig, device):
+                 cfg: TrainConfig, device, on_round=None):
     """``train_vocab``'s loop, writing to ``results_dir``."""
     if cfg.backend == "cuda":
         multihost.local_devices(device)    # raises before any work
@@ -678,252 +749,276 @@ def _train_vocab(dataset: bytes, dictionary_path, results_dir,
             log.info("max_rounds reached")
             break
 
-        # --- build candidate vocabularies (master :2217-2290) ---
-        jobs = []
-        shuffles = 0
-        no_more_vocabs = False
-        while not jobs:
-            if shuffles == 5000 or (shuffles > 0
-                                    and remaining <= vocab_size_effective):
-                if justreset:
-                    log.info("all near vocabularies have been tested")
-                    no_more_vocabs = None  # terminal
+        with tracing.root("round") as round_span:
+            with tracing.span("prune", len(tokens)):
+                # --- build candidate vocabularies (master :2217-2290) ---
+                jobs = []
+                shuffles = 0
+                no_more_vocabs = False
+                while not jobs:
+                    if shuffles == 5000 or (shuffles > 0
+                                            and remaining <= vocab_size_effective):
+                        if justreset:
+                            log.info("all near vocabularies have been tested")
+                            no_more_vocabs = None  # terminal
+                            break
+                        no_more_vocabs = True
+                        break
+                    rng.shuffle(tokens)
+                    shuffles += 1
+                    i = 0
+                    for _ in range(10):
+                        to = i + vocab_size_effective
+                        if to > len(tokens):
+                            break
+                        cand_tokens = (single_chars + tokens[i:to] + special_tokens)
+                        i = to
+                        key = sorted(cand_tokens, key=lambda t: (len(t), t))
+                        h = _fnv_vocab_hash(key) if within_vocab_x2 else None
+                        if h is not None and h in vocabs_tried:
+                            continue
+                        if h is not None:
+                            vocabs_tried.add(h)
+                        jobs.append((cand_tokens, 0))
+                        if len(jobs) >= cfg.workers:
+                            break
+                if no_more_vocabs is None:
                     break
-                no_more_vocabs = True
-                break
-            rng.shuffle(tokens)
-            shuffles += 1
-            i = 0
-            for _ in range(10):
-                to = i + vocab_size_effective
-                if to > len(tokens):
-                    break
-                cand_tokens = (single_chars + tokens[i:to] + special_tokens)
-                i = to
-                key = sorted(cand_tokens, key=lambda t: (len(t), t))
-                h = _fnv_vocab_hash(key) if within_vocab_x2 else None
-                if h is not None and h in vocabs_tried:
-                    continue
-                if h is not None:
-                    vocabs_tried.add(h)
-                jobs.append((cand_tokens, 0))
-                if len(jobs) >= cfg.workers:
-                    break
-        if no_more_vocabs is None:
-            break
 
-        # workType 1 jobs (master :2183-2215)
-        if add_tokens_flag:
-            add_tokens_flag = False
-            if len(double_tokens) >= vocab_size_effective:
-                rng.shuffle(double_tokens)
-                half1 = double_tokens[:vocab_size_effective]
-                to2 = vocab_size_effective * 2
-                half2 = double_tokens[vocab_size_effective:to2]
-                if len(double_tokens) < to2:
-                    half2 = half2 + double_tokens[:to2 - len(double_tokens)]
-                jobs.append((single_chars + half1 + special_tokens, 1))
-                jobs.append((single_chars + half2 + special_tokens, 1))
+                # workType 1 jobs (master :2183-2215)
+                if add_tokens_flag:
+                    add_tokens_flag = False
+                    if len(double_tokens) >= vocab_size_effective:
+                        rng.shuffle(double_tokens)
+                        half1 = double_tokens[:vocab_size_effective]
+                        to2 = vocab_size_effective * 2
+                        half2 = double_tokens[vocab_size_effective:to2]
+                        if len(double_tokens) < to2:
+                            half2 = half2 + double_tokens[:to2 - len(double_tokens)]
+                        jobs.append((single_chars + half1 + special_tokens, 1))
+                        jobs.append((single_chars + half2 + special_tokens, 1))
 
-        # --- score the candidates (the worker pool) ---
-        # Candidates are evaluated thread-parallel (the C++ scorer releases
-        # the GIL), results processed in submission order so every master
-        # decision is deterministic.
-        tokens_to_remove: dict[bytes, int] = {}
-        has_tokens_to_remove = False
+            # --- score the candidates (the worker pool) ---
+            # Candidates are evaluated thread-parallel (the C++ scorer releases
+            # the GIL), results processed in submission order so every master
+            # decision is deterministic.
+            tokens_to_remove: dict[bytes, int] = {}
+            has_tokens_to_remove = False
 
-        def _evaluate(job):
-            cand_tokens, work_type = job[0], job[1]
-            widx = job[2]
-            cand = scorer.build(cand_tokens)
-            # the full dataset is used after midway for normal scoring jobs
-            # (trainvocab.go:916-922; workType-1 jobs always use strips)
-            use_full = (reached_midway and work_type == 0)
-            datasets = [filedata] if use_full else worker_strips[widx]
-            return cand, use_full, scorer.score(cand, datasets)
+            def _evaluate(job):
+                cand_tokens, work_type = job[0], job[1]
+                widx = job[2]
+                # the full dataset is used after midway for normal scoring jobs
+                # (trainvocab.go:916-922; workType-1 jobs always use strips)
+                use_full = (reached_midway and work_type == 0)
+                datasets = [filedata] if use_full else worker_strips[widx]
+                with tracing.root("candidate", sum(map(len, datasets))):
+                    with tracing.span("build", len(cand_tokens)):
+                        cand = scorer.build(cand_tokens)
+                    return cand, datasets, scorer.score(cand, datasets)
 
-        jobs_w = []
-        for cand_tokens, work_type in jobs:
-            jobs_w.append((cand_tokens, work_type,
-                           worker_cycle % max(1, len(worker_strips))))
-            worker_cycle += 1
-        # Asynchronous rounds (VERDICT r3 #4, trainvocab.go:1831-2293):
-        # worker threads keep scoring later candidates WHILE the master
-        # consumes earlier results (the streamed map below yields in
-        # submission order, so master decisions stay deterministic).  For
-        # the cuda backend two threads pipeline candidate build + table
-        # masking (host numpy) against device scoring.
-        from concurrent.futures import ThreadPoolExecutor
-        _pool = None
-        # ranks of a process group score each candidate together, so they
-        # score candidates one at a time, in the same order
-        if len(jobs_w) > 1 and multihost.process_info()[1] == 1:
-            workers_n = (min(4, len(jobs_w)) if cfg.backend == "native"
-                         else 2)
-            _pool = ThreadPoolExecutor(max_workers=workers_n)
-            evaluated = _pool.map(_evaluate, jobs_w)
-        else:
-            evaluated = (_evaluate(j) for j in jobs_w)
-
-        for (cand_tokens, work_type, _w), (cand, use_full, score_result) \
-                in zip(jobs_w, evaluated):
-            scores, tokens_in_text, missing = score_result
-            remaining_plus = 0 if reached_vocab else remaining + vocab_diff
-            votes = _select_deletions(
-                cand, scores, vocab_size, remaining_plus, midway_target,
-                cfg.fast, special_set, work_type)
-
-            if work_type == 1:
-                if not double1:
-                    double1 = votes
-                else:
-                    double2 = votes
-                continue
-
-            if cfg.include_missing_bytes and missing:
-                for b in missing:
-                    if bytes([b]) not in single_chars:
-                        single_chars.append(bytes([b]))
-                single_chars.sort()
-                vocab_diff = len(single_chars) + len(special_tokens)
-                vocab_size_effective = vocab_size - vocab_diff
-
-            # best tracking (master :1859-1886)
-            if within_vocab_x2 and use_full:
-                if tokens_in_text < best:
-                    best = tokens_in_text
-                    best1percent = best + best // 100
-                    no_new_best = 0
-                    log.info("new best score %d", best)
-                    dicts_within_1pct = [
-                        (t, f) for (t, f) in dicts_within_1pct
-                        if t <= best1percent or not _try_remove(f)]
-                else:
-                    no_new_best += 1
-                if tokens_in_text < best1percent:
-                    fname = os.path.join(
-                        results_dir,
-                        f"{tokens_in_text}_{unique_file_number}.tok")
-                    unique_file_number += 1
-                    # tokens the candidate build dropped (e.g. beyond the
-                    # 40-byte key cap) have no dictionary entry: score 0
-                    saved_tokens = sorted(set(cand_tokens),
-                                          key=lambda t: (len(t), t))
-                    didx = cand.dictionary.index
-                    score_arr = [
-                        (float(scores[cand.id[didx[t]]]) / max(1, data_len))
-                        if t in didx else 0.0
-                        for t in saved_tokens]
-                    save_tokens_with_scores(
-                        fname, header, saved_tokens, score_arr,
-                        special_tokens)
-                    dicts_within_1pct.append((tokens_in_text, fname))
-
-            if reached_vocab:
-                if no_new_best >= keep_trying:
-                    log.info("finished: no new best in %d runs", no_new_best)
-                    if _pool is not None:
-                        # stop remaining queued candidates before the final
-                        # scoring pass (they'd contend for the device and
-                        # keep the process alive after the decision to stop)
-                        _pool.shutdown(wait=False, cancel_futures=True)
-                    return _finish(dicts_within_1pct, best, best1percent,
-                                   data_len)
-                if best != tokens_in_text and votes:
-                    temp = remaining - vocab_size_effective
-                    cap = _final_phase_cap(temp, tokens_in_text > best1percent,
-                                           cfg.fast, zero_removed)
-                    cap = min(cap, len(votes))
-                    for t in votes[:cap]:
-                        tokens_to_remove[t] = tokens_to_remove.get(t, 0) + 1
-                        counter_multi_deletes[t] = (
-                            counter_multi_deletes.get(t, 0)
-                            + (remaining - vocab_size_effective))
-                    has_tokens_to_remove = True
+            jobs_w = []
+            for cand_tokens, work_type in jobs:
+                jobs_w.append((cand_tokens, work_type,
+                               worker_cycle % max(1, len(worker_strips))))
+                worker_cycle += 1
+            # Asynchronous rounds (VERDICT r3 #4, trainvocab.go:1831-2293):
+            # worker threads keep scoring later candidates WHILE the master
+            # consumes earlier results (the streamed map below yields in
+            # submission order, so master decisions stay deterministic).  For
+            # the cuda backend two threads pipeline candidate build + table
+            # masking (host numpy) against device scoring.
+            from concurrent.futures import ThreadPoolExecutor
+            _pool = None
+            # ranks of a process group score each candidate together, so they
+            # score candidates one at a time, in the same order
+            if len(jobs_w) > 1 and multihost.process_info()[1] == 1:
+                workers_n = (min(4, len(jobs_w)) if cfg.backend == "native"
+                             else 2)
+                _pool = ThreadPoolExecutor(max_workers=workers_n)
+                evaluated = _pool.map(_evaluate, jobs_w)
             else:
-                if best != tokens_in_text:
-                    for t in votes:
-                        tokens_to_remove[t] = tokens_to_remove.get(t, 0) + 1
-                    has_tokens_to_remove = True
+                evaluated = (_evaluate(j) for j in jobs_w)
 
-        if _pool is not None:
-            _pool.shutdown()
+            scored = []
+            for (cand_tokens, work_type, _w), (cand, datasets, score_result) \
+                    in zip(jobs_w, evaluated):
+                use_full = (reached_midway and work_type == 0)
+                with tracing.span("select") as select_span:
+                    scores, tokens_in_text, missing = score_result
+                    remaining_plus = 0 if reached_vocab else remaining + vocab_diff
+                    votes = _select_deletions(
+                        cand, scores, vocab_size, remaining_plus, midway_target,
+                        cfg.fast, special_set, work_type)
+                    select_span.n = len(votes)
+                    if on_round is not None:
+                        scored.append(Scored(cand, work_type, datasets, scores,
+                                             tokens_in_text, missing,
+                                             remaining_plus, cand_tokens))
 
-        # --- prune (master default branch :1962-2177) ---
-        if has_tokens_to_remove or remaining < vocab_size_effective or no_more_vocabs:
-            before = len(tokens)
-            tokens = [t for t in tokens if t not in tokens_to_remove]
-            removed = before - len(tokens)
-            zero_removed = zero_removed + 1 if removed == 0 else 0
-            remaining = len(tokens)
-            log.info("round %d: deleted %d; remaining %d%s", round_no,
-                     removed, remaining + vocab_diff,
-                     " [final]" if reached_vocab else
-                     (" [x2]" if within_vocab_x2 else
-                      (" [midway]" if reached_midway else "")))
-            if remaining <= midway_target and not reached_midway:
-                save_checkpoint(f"midwaypoint_{remaining + vocab_diff}.tok",
-                                tokens)
-                reached_midway = True
-            if remaining <= vocab_size * 2 and not within_vocab_x2:
-                save_checkpoint(f"doublevocab_{remaining + vocab_diff}.tok",
-                                tokens)
-                double_tokens = list(tokens)
-                within_vocab_x2 = True
-                add_tokens_flag = True
-            justreset = False
-            if remaining < vocab_size_effective or no_more_vocabs:
-                # final-phase reset (master :2018-2160)
-                unique_final: set[bytes] = set()
-                if final_run_filename:  # subsequent resets
-                    prev = load_tokens_file(final_run_filename)
-                    for b in prev["tokens"]:
-                        if len(b) > 1 and b not in special_set:
-                            if counter_multi_deletes.get(b, 0) < 4000:
-                                unique_final.add(b)
-                    unique_final.update(tokens)
-                else:
-                    for t_count, fname in dicts_within_1pct:
-                        if t_count < best1percent:
-                            d = load_tokens_file(fname)
-                            for b in d["tokens"]:
+                    if work_type == 1:
+                        if not double1:
+                            double1 = votes
+                        else:
+                            double2 = votes
+                        continue
+
+                    if cfg.include_missing_bytes and missing:
+                        for b in missing:
+                            if bytes([b]) not in single_chars:
+                                single_chars.append(bytes([b]))
+                        single_chars.sort()
+                        vocab_diff = len(single_chars) + len(special_tokens)
+                        vocab_size_effective = vocab_size - vocab_diff
+
+                    # best tracking (master :1859-1886)
+                    if within_vocab_x2 and use_full:
+                        if tokens_in_text < best:
+                            best = tokens_in_text
+                            best1percent = best + best // 100
+                            no_new_best = 0
+                            log.info("new best score %d", best)
+                            dicts_within_1pct = [
+                                (t, f) for (t, f) in dicts_within_1pct
+                                if t <= best1percent or not _try_remove(f)]
+                        else:
+                            no_new_best += 1
+                        if tokens_in_text < best1percent:
+                            fname = os.path.join(
+                                results_dir,
+                                f"{tokens_in_text}_{unique_file_number}.tok")
+                            unique_file_number += 1
+                            # tokens the candidate build dropped (e.g. beyond the
+                            # 40-byte key cap) have no dictionary entry: score 0
+                            saved_tokens = sorted(set(cand_tokens),
+                                                  key=lambda t: (len(t), t))
+                            didx = cand.dictionary.index
+                            score_arr = [
+                                (float(scores[cand.id[didx[t]]]) / max(1, data_len))
+                                if t in didx else 0.0
+                                for t in saved_tokens]
+                            save_tokens_with_scores(
+                                fname, header, saved_tokens, score_arr,
+                                special_tokens)
+                            dicts_within_1pct.append((tokens_in_text, fname))
+
+                    if reached_vocab:
+                        if no_new_best >= keep_trying:
+                            log.info("finished: no new best in %d runs", no_new_best)
+                            if _pool is not None:
+                                # stop remaining queued candidates before the final
+                                # scoring pass (they'd contend for the device and
+                                # keep the process alive after the decision to stop)
+                                _pool.shutdown(wait=False, cancel_futures=True)
+                            return _finish(dicts_within_1pct, best, best1percent,
+                                           data_len)
+                        if best != tokens_in_text and votes:
+                            temp = remaining - vocab_size_effective
+                            cap = _final_phase_cap(temp, tokens_in_text > best1percent,
+                                                   cfg.fast, zero_removed)
+                            cap = min(cap, len(votes))
+                            for t in votes[:cap]:
+                                tokens_to_remove[t] = tokens_to_remove.get(t, 0) + 1
+                                counter_multi_deletes[t] = (
+                                    counter_multi_deletes.get(t, 0)
+                                    + (remaining - vocab_size_effective))
+                            has_tokens_to_remove = True
+                    else:
+                        if best != tokens_in_text:
+                            for t in votes:
+                                tokens_to_remove[t] = tokens_to_remove.get(t, 0) + 1
+                            has_tokens_to_remove = True
+
+            if _pool is not None:
+                _pool.shutdown()
+
+            with tracing.span("prune", len(tokens)):
+                # --- prune (master default branch :1962-2177) ---
+                removed = 0
+                if has_tokens_to_remove or remaining < vocab_size_effective or no_more_vocabs:
+                    before = len(tokens)
+                    tokens = [t for t in tokens if t not in tokens_to_remove]
+                    removed = before - len(tokens)
+                    zero_removed = zero_removed + 1 if removed == 0 else 0
+                    remaining = len(tokens)
+                    log.info("round %d: deleted %d; remaining %d%s", round_no,
+                             removed, remaining + vocab_diff,
+                             " [final]" if reached_vocab else
+                             (" [x2]" if within_vocab_x2 else
+                              (" [midway]" if reached_midway else "")))
+                    if remaining <= midway_target and not reached_midway:
+                        save_checkpoint(f"midwaypoint_{remaining + vocab_diff}.tok",
+                                        tokens)
+                        reached_midway = True
+                    if remaining <= vocab_size * 2 and not within_vocab_x2:
+                        save_checkpoint(f"doublevocab_{remaining + vocab_diff}.tok",
+                                        tokens)
+                        double_tokens = list(tokens)
+                        within_vocab_x2 = True
+                        add_tokens_flag = True
+                    justreset = False
+                    if remaining < vocab_size_effective or no_more_vocabs:
+                        # final-phase reset (master :2018-2160)
+                        unique_final: set[bytes] = set()
+                        if final_run_filename:  # subsequent resets
+                            prev = load_tokens_file(final_run_filename)
+                            for b in prev["tokens"]:
                                 if len(b) > 1 and b not in special_set:
+                                    if counter_multi_deletes.get(b, 0) < 4000:
+                                        unique_final.add(b)
+                            unique_final.update(tokens)
+                        else:
+                            for t_count, fname in dicts_within_1pct:
+                                if t_count < best1percent:
+                                    d = load_tokens_file(fname)
+                                    for b in d["tokens"]:
+                                        if len(b) > 1 and b not in special_set:
+                                            unique_final.add(b)
+                            no_new_best = 0
+                            tokens = sorted(unique_final, key=lambda t: (len(t), t))
+                            final_run_filename = save_checkpoint(
+                                f"finalrun_{len(tokens) + vocab_diff}.tok", tokens)
+                        # resurrection from the 2x snapshot (master :2161-2155)
+                        n_res = max(0, (len(unique_final) - vocab_size_effective) // 3)
+                        added = 0
+                        for src_list in (double1, double2):
+                            added = 0
+                            for b in src_list:
+                                if (len(b) > 1 and b not in special_set
+                                        and b not in unique_final
+                                        and counter_multi_deletes.get(b, 0) < 1000):
                                     unique_final.add(b)
-                    no_new_best = 0
-                    tokens = sorted(unique_final, key=lambda t: (len(t), t))
-                    final_run_filename = save_checkpoint(
-                        f"finalrun_{len(tokens) + vocab_diff}.tok", tokens)
-                # resurrection from the 2x snapshot (master :2161-2155)
-                n_res = max(0, (len(unique_final) - vocab_size_effective) // 3)
-                added = 0
-                for src_list in (double1, double2):
-                    added = 0
-                    for b in src_list:
-                        if (len(b) > 1 and b not in special_set
-                                and b not in unique_final
-                                and counter_multi_deletes.get(b, 0) < 1000):
-                            unique_final.add(b)
-                            added += 1
-                            if added >= n_res:
-                                break
-                double1, double2 = [], []
-                add_tokens_flag = True
-                tokens = sorted(unique_final, key=lambda t: (len(t), t))
-                reached_vocab = True
-                justreset = True
-                remaining = len(tokens)
-                log.info("determining best combination of %d tokens",
-                         remaining + vocab_diff)
-            if (not reached_vocab
-                    and remaining > vocab_size_effective
-                    + vocab_size_effective // 50):
-                interval10 += 1
-                if interval10 == 10:
-                    if last_interval:
-                        _try_remove(last_interval)
-                    last_interval = save_checkpoint(
-                        f"interval_{remaining + vocab_diff}.tok", tokens)
-                    interval10 = 0
+                                    added += 1
+                                    if added >= n_res:
+                                        break
+                        double1, double2 = [], []
+                        add_tokens_flag = True
+                        tokens = sorted(unique_final, key=lambda t: (len(t), t))
+                        reached_vocab = True
+                        justreset = True
+                        remaining = len(tokens)
+                        log.info("determining best combination of %d tokens",
+                                 remaining + vocab_diff)
+                    if (not reached_vocab
+                            and remaining > vocab_size_effective
+                            + vocab_size_effective // 50):
+                        interval10 += 1
+                        if interval10 == 10:
+                            if last_interval:
+                                _try_remove(last_interval)
+                            last_interval = save_checkpoint(
+                                f"interval_{remaining + vocab_diff}.tok", tokens)
+                            interval10 = 0
+            round_span.n = len(jobs_w)
+
+        if on_round is not None and on_round(Round(
+                round_no, tokens_to_remove, removed, remaining + vocab_diff,
+                "final" if reached_vocab else "x2" if within_vocab_x2
+                else "midway" if reached_midway else "",
+                scored, vocab_size, midway_target, cfg.fast,
+                frozenset(special_set), scorer_counters(scorer))):
+            log.info("stopped by on_round after round %d", round_no)
+            break
 
     return _finish(dicts_within_1pct, best, best1percent, data_len)
 
