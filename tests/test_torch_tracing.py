@@ -2,13 +2,15 @@
 ``load(vocab, device="cpu", route="device")``: off records nothing and
 reads no clock, ``enable()`` and a running profiler record each call's
 tree on its own thread, on the profiler's clock; the buffer's bound
-counts what it drops; a rerun is recorded, a host fallback is not; a
+counts what it drops; a rerun is recorded, a host fallback is not; the
+native capcode encoder's ``runs`` counts the bytes it copies; a
 span opened outside a call records nothing; the trainer's spans record
 under its ``round`` and ``candidate`` roots, and cost no clock off."""
 
 import importlib.util
 import os
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -24,7 +26,8 @@ VOCAB = os.path.join(ROOT, "examples", "realtext-1024-fast.vocab")
 TEXT = ("The quick brown fox jumps over the lazy dog. Ünïcödé café, "
         "naïve ÉCOLE. ") * 40
 CHILDREN = {"nfd": "tokenize", "capcode": "tokenize", "device": "tokenize",
-            "unicodedata": "nfd", "stage": "device", "launch": "device",
+            "unicodedata": "nfd", "runs": "capcode", "stage": "device",
+            "launch": "device",
             "rerun": "device", "expand": "device"}
 
 
@@ -112,6 +115,27 @@ def test_unicodedata_span_counts_the_runs_it_is_handed(vocab):
     named = _tree([r for r in recs if r.call != recs[-1].call])
     joined = "\n".join(runs).encode()
     assert named["unicodedata"].n == len(joined)
+
+
+def test_runs_span_counts_the_bytes_copied_as_runs(vocab):
+    """A long lowercase text is copied in runs, all but its first byte
+    and a tail under 16 bytes; a text the Python encoder encodes (no
+    native library) opens no ``runs`` span."""
+    from tokenmonster_tpu_torch import native
+    text = "plain lowercase words and spaces only, " * 200
+    with tracing.enable():
+        vocab.tokenize(text)
+    named = _tree(tracing.records())
+    n = named["capcode"].n
+    assert n - 16 <= named["runs"].n < n
+    tracing.clear()
+    want = vocab.tokenize(TEXT)
+    with mock.patch.object(native, "get_lib", lambda: None):
+        with tracing.enable():
+            got = vocab.tokenize(TEXT)
+    np.testing.assert_array_equal(got, want)
+    named = _tree(tracing.records())
+    assert "capcode" in named and "runs" not in named
 
 
 def test_list_items_keep_their_own_trees(vocab):

@@ -1,8 +1,10 @@
 """ctypes loader/builder for the native host runtime (tm_native.cpp).
 
-Copy of ``tokenmonster_tpu/native/__init__.py`` for this package: the C++
-source is the JAX package's, byte for byte, and every wrapper below is the
-original's.  The library is built with g++ on first use into
+Copy of ``tokenmonster_tpu/native/__init__.py`` for this package.  The C++
+source began as the JAX package's; its encoders size their output from
+the encoding, the id scans bound their buffers, and the capcode encoder
+copies the runs between the bytes that need a decision.  The library is
+built with g++ on first use into
 ``build/tokenmonster_tpu_torch/native/<hash>/`` under the repository root
 (the hash covers the source, the flags and the host CPU, since the build
 targets ``-march=native``).  Builds are serialized across processes by an
@@ -28,6 +30,8 @@ import subprocess
 import threading
 
 import numpy as np
+
+from .. import tracing
 
 _lock = threading.Lock()
 _lib = None
@@ -122,7 +126,8 @@ def _load(so):
         ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p]
     lib.tm_capcode_encode.restype = ctypes.c_int64
     lib.tm_capcode_encode.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                      ctypes.c_void_p, ctypes.c_int64]
+                                      ctypes.c_void_p, ctypes.c_int64,
+                                      ctypes.c_void_p]
     lib.tm_nocapcode_encode.restype = ctypes.c_int64
     lib.tm_nocapcode_encode.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                         ctypes.c_void_p]
@@ -348,7 +353,8 @@ def native_capcode_encode(data: bytes) -> bytes | None:
     """Into a buffer of 2n + 16 bytes, or, where the encoding is longer
     (capcode can triple a text: "1a" encodes as "D 1D a"; the encoder
     then writes no byte past the buffer and returns the length), once more
-    into one of the length it returned."""
+    into one of the length it returned.  The encoder's call is the span
+    ``runs``, whose ``n`` is the input bytes it copied as runs."""
     lib = get_lib()
     if lib is None:
         return None
@@ -356,10 +362,15 @@ def native_capcode_encode(data: bytes) -> bytes | None:
     n = len(data)
     src = np.frombuffer(data, np.uint8)
     out = np.empty(2 * n + 16, np.uint8)
-    m = lib.tm_capcode_encode(src.ctypes.data, n, out.ctypes.data, len(out))
-    if m > len(out):
-        out = np.empty(m, np.uint8)
-        m = lib.tm_capcode_encode(src.ctypes.data, n, out.ctypes.data, m)
+    runs = ctypes.c_int64(0)
+    with tracing.span("runs") as span:
+        m = lib.tm_capcode_encode(src.ctypes.data, n, out.ctypes.data,
+                                  len(out), ctypes.byref(runs))
+        if m > len(out):
+            out = np.empty(m, np.uint8)
+            m = lib.tm_capcode_encode(src.ctypes.data, n, out.ctypes.data,
+                                      m, ctypes.byref(runs))
+        span.n = runs.value
     return out[:m].tobytes()
 
 

@@ -713,22 +713,12 @@ inline int enc(uint32_t cp, uint8_t* o) {
   return 4;
 }
 
-// enc's output length for cp, branch-free so that a sum over a buffer
-// vectorises.
-inline int enc_len(uint32_t cp) {
-  int v = cp < 0x110000;
-  return 1 + (v & (cp >= 0x80)) + (v & (cp >= 0x800)) + (v & (cp >= 0x10000));
-}
-
 inline bool cls_valid(uint32_t cp) { return cp < 0x110000; }
 inline bool c_letter(uint32_t cp) { return cls_valid(cp) && pl_letter(cp); }
 inline bool c_upper(uint32_t cp) { return cls_valid(cp) && pl_upper(cp); }
 inline bool c_lower(uint32_t cp) { return cls_valid(cp) && pl_lower(cp); }
 inline bool c_number(uint32_t cp) { return cls_valid(cp) && pl_number(cp); }
 inline bool c_mod(uint32_t cp) { return cls_valid(cp) && pl_mod(cp); }
-inline uint32_t c_tolower(uint32_t cp) {
-  return cls_valid(cp) ? g_lower[cp] : cp;
-}
 inline uint32_t c_toupper(uint32_t cp) {
   return cls_valid(cp) ? g_upper[cp] : cp;
 }
@@ -745,128 +735,193 @@ void tm_set_tables(const uint8_t* props, const uint32_t* lower,
   g_upper = upper;
 }
 
+namespace {
+
+struct Room {
+  uint8_t* o;
+  int64_t cap;
+};
+
+// The capcode encoder's output moves from the caller's buffer to `spill`
+// once it outgrows cap, and `spill` grows from there: room for k more
+// bytes at pos.
+Room spill_room(std::vector<uint8_t>& spill, uint8_t* o, int64_t cap,
+                int64_t pos, int64_t k) {
+  const int64_t want = std::max(2 * cap, pos + k) + 64;
+  const bool first = spill.empty();
+  spill.resize((size_t)want);
+  if (first) std::memcpy(spill.data(), o, (size_t)pos);
+  return {spill.data(), want};
+}
+
+typedef uint8_t u8x16 __attribute__((vector_size(16)));
+
+// The offset in p[0..16) of the first byte outside a word that may need a
+// decision, or 16: a byte >= 0x80, an A-Z, an a-z after a byte that is not a
+// space or an ASCII letter, a 0-9 after a byte that is not a space or a
+// digit.  p[-1] is the byte before.  Every other byte is copied as it is.
+// The ASCII classes are those of g_props below 0x80 (tests hold them so).
+inline int first_decision(const uint8_t* p) {
+  u8x16 c, q;
+  std::memcpy(&c, p, 16);
+  std::memcpy(&q, p - 1, 16);
+  const auto space = q == ' ';
+  const auto flag =
+      (c >= 0x80) | ((u8x16)(c - 'A') < 26) |
+      (((u8x16)(c - 'a') < 26) & ~(space | ((u8x16)((q | 0x20) - 'a') < 26))) |
+      (((u8x16)(c - '0') < 10) & ~(space | ((u8x16)(q - '0') < 10)));
+  uint64_t w[2];
+  std::memcpy(w, &flag, 16);
+  if (w[0]) return __builtin_ctzll(w[0]) >> 3;
+  if (w[1]) return 8 + (__builtin_ctzll(w[1]) >> 3);
+  return 16;
+}
+
+}  // namespace
+
 // capcode level-2 encode over UTF-8 bytes into out, which holds cap bytes.
 // Returns the output's length, and writes no byte past cap (where the
 // length is over cap, the caller calls again with room for it: "1a"
-// encodes as "D 1D a").
-// Port of javascript/tokenmonster.js:900-1005 at codepoint granularity:
-// the retro-fixup loop operates on a codepoint buffer.
+// encodes as "D 1D a").  *run_bytes gets the input bytes copied as runs.
+// Port of javascript/tokenmonster.js:900-1005.  Outside a word the input
+// is scanned 16 bytes at a time and the bytes before the first that may
+// need a decision are copied as they are; that byte, and every code point
+// inside a word, takes the reference's step.  The retro-fixup rewrites the
+// word's bytes: markers are ASCII, and a word holds only code points that
+// decode as they were written.  The output and the tables are held in
+// locals, which the output's byte stores cannot alias.
 int64_t tm_capcode_encode(const uint8_t* in, int64_t n, uint8_t* out,
-                          int64_t cap) {
-  std::vector<uint32_t> buf;
-  buf.reserve((size_t)n + (size_t)n / 2 + 8);
-  int64_t goback_pos = 0, word_token_pos = 0;
+                          int64_t cap, int64_t* run_bytes) {
+  const uint8_t* const props = g_props;
+  const uint32_t* const lower = g_lower;
+  auto is = [props](uint32_t cp, uint8_t bit) {
+    return cp < 0x110000 && (props[cp] & bit);
+  };
+  auto to_lower = [lower](uint32_t cp) {
+    return cp < 0x110000 ? lower[cp] : cp;
+  };
+  auto word_sep = [&](uint32_t r) {
+    return !(is(r, P_LETTER) || r == APOS || r == APOS2 ||
+             is(r, P_MODIFIER));
+  };
+  uint8_t* o = out;
+  int64_t room = cap, pos = 0;
+  std::vector<uint8_t> spill, fix;
+  auto need = [&](int64_t k) {
+    if (pos + k > room) {
+      const Room got = spill_room(spill, o, room, pos, k);
+      o = got.o;
+      room = got.cap;
+    }
+  };
+  auto marker = [&](uint8_t b) {
+    o[pos] = 'D';
+    o[pos + 1] = b;
+    pos += 2;
+  };
+  int64_t goback_pos = 0, word_token_pos = 0, runs = 0;
   uint32_t rlast = '.', rlast2 = '.';
   bool in_word = false, multi_letter = false;
-  auto word_sep = [&](uint32_t r) {
-    return !(c_letter(r) || r == APOS || r == APOS2 || c_mod(r));
-  };
   for (int64_t i = 0; i < n;) {
+    // A byte >= 0x80 or an A-Z takes the step whatever the scan says.
+    if (!in_word && i > 0 && in[i] < 0x80 && (uint8_t)(in[i] - 'A') >= 26) {
+      const int64_t i0 = i;
+      while (n - i >= 16) {
+        need(16);
+        std::memcpy(o + pos, in + i, 16);
+        const int j = first_decision(in + i);
+        i += j;
+        pos += j;
+        if (j < 16) break;
+      }
+      if (i > i0) {
+        runs += i - i0;
+        rlast2 = i - i0 >= 2 ? in[i - 2] : rlast;
+        rlast = in[i - 1];
+        if (i == n) break;
+      }
+    }
     int l;
-    uint32_t r = dec(in + i, n - i, &l);
+    const uint32_t r = dec(in + i, n - i, &l);
     i += l;
+    need(8);
     if (in_word) {
-      if (c_upper(r)) {
-        if (word_sep(rlast)) {
-          buf.push_back('D');
-          buf.push_back(' ');
-        }
+      if (is(r, P_UPPER)) {
+        if (word_sep(rlast)) marker(' ');
         multi_letter = true;
-        buf.push_back(c_tolower(r));
+        pos += enc(to_lower(r), o + pos);
       } else {
-        if (c_lower(r)) {
+        if (is(r, P_LOWER)) {
           in_word = false;
-          buf[(size_t)word_token_pos] = 'C';
+          o[word_token_pos] = 'C';
           if (multi_letter) {
-            int64_t i2 = goback_pos;
-            while (i2 < (int64_t)buf.size()) {
-              if (buf[(size_t)i2] == 'D' && i2 + 1 < (int64_t)buf.size() &&
-                  buf[(size_t)i2 + 1] == ' ') {
-                if (i2 + 2 < (int64_t)buf.size() && c_lower(buf[(size_t)i2 + 2])) {
-                  buf.insert(buf.begin() + i2 + 2, ' ');
-                  buf[(size_t)i2] = 'D';
-                  buf[(size_t)i2 + 1] = 'C';
-                  i2 += 1;
+            // "D " before a lowercase code point becomes "DC ", and "DC "
+            // goes before every other one.
+            const int64_t end = pos;
+            fix.clear();
+            for (int64_t k = goback_pos; k < end;) {
+              int cl;
+              if (o[k] == 'D' && k + 1 < end && o[k + 1] == ' ') {
+                if (k + 2 >= end) {
+                  fix.insert(fix.end(), {'D', ' '});
+                  break;
                 }
-                i2 += 3;
+                if (is(dec(o + k + 2, end - k - 2, &cl), P_LOWER))
+                  fix.insert(fix.end(), {'D', 'C', ' '});
+                else
+                  fix.insert(fix.end(), {'D', ' '});
+                fix.insert(fix.end(), o + k + 2, o + k + 2 + cl);
+                k += 2 + cl;
               } else {
-                if (c_lower(buf[(size_t)i2])) {
-                  buf.insert(buf.begin() + i2, {'D', 'C', ' '});
-                  i2 += 4;
-                } else {
-                  i2 += 1;
-                }
+                if (is(dec(o + k, end - k, &cl), P_LOWER))
+                  fix.insert(fix.end(), {'D', 'C', ' '});
+                fix.insert(fix.end(), o + k, o + k + cl);
+                k += cl;
               }
             }
+            pos = goback_pos;
+            need((int64_t)fix.size() + 8);
+            std::memcpy(o + pos, fix.data(), fix.size());
+            pos += (int64_t)fix.size();
           }
-          if (word_sep(rlast)) {
-            buf.push_back('D');
-            buf.push_back(' ');
-          }
-        } else {
-          if (c_number(r)) {
-            if (!c_number(rlast)) {
-              buf.push_back('D');
-              buf.push_back(' ');
-            }
-          } else if (!(r == APOS || r == APOS2 || c_mod(r))) {
-            in_word = false;
-          }
+          if (word_sep(rlast)) marker(' ');
+        } else if (is(r, P_NUMBER)) {
+          if (!is(rlast, P_NUMBER)) marker(' ');
+        } else if (!(r == APOS || r == APOS2 || is(r, P_MODIFIER))) {
+          in_word = false;
         }
-        buf.push_back(r);
+        pos += enc(r, o + pos);
       }
     } else {
-      if (c_lower(r)) {
-        if (!(rlast == ' ' || c_letter(rlast) ||
-              (c_letter(rlast2) && (rlast == APOS || rlast == APOS2)) ||
-              c_mod(rlast))) {
-          buf.push_back('D');
-          buf.push_back(' ');
-        }
-        buf.push_back(r);
-      } else if (c_upper(r)) {
+      if (is(r, P_LOWER)) {
+        if (!(rlast == ' ' || is(rlast, P_LETTER) ||
+              (is(rlast2, P_LETTER) && (rlast == APOS || rlast == APOS2)) ||
+              is(rlast, P_MODIFIER)))
+          marker(' ');
+      } else if (is(r, P_UPPER)) {
         if (rlast == ' ') {
-          word_token_pos = (int64_t)buf.size() - 1;
-          buf[(size_t)word_token_pos] = 'W';
-          buf.push_back(' ');
+          word_token_pos = pos - 1;
+          o[word_token_pos] = 'W';
+          o[pos++] = ' ';
         } else {
-          buf.push_back('D');
-          word_token_pos = (int64_t)buf.size();
-          buf.push_back('W');
-          buf.push_back(' ');
+          marker('W');
+          word_token_pos = pos - 1;
+          o[pos++] = ' ';
         }
-        buf.push_back(c_tolower(r));
-        goback_pos = (int64_t)buf.size();
+        pos += enc(to_lower(r), o + pos);
+        goback_pos = pos;
         multi_letter = false;
         in_word = true;
-      } else if (c_number(r)) {
-        if (!(rlast == ' ' || c_number(rlast))) {
-          buf.push_back('D');
-          buf.push_back(' ');
-        }
-        buf.push_back(r);
-      } else {
-        buf.push_back(r);
+      } else if (is(r, P_NUMBER)) {
+        if (!(rlast == ' ' || is(rlast, P_NUMBER))) marker(' ');
       }
+      if (!in_word) pos += enc(r, o + pos);
     }
     rlast2 = rlast;
     rlast = r;
   }
-  // Write, unchecked, as many code points as surely fit (4 bytes each at
-  // most); once fewer than 64 surely do, count what is left first.
-  int64_t pos = 0;
-  const size_t m = buf.size();
-  for (size_t i = 0; i < m;) {
-    size_t fit = (size_t)((cap - pos) / 4);
-    if (fit < 64) {
-      int64_t need = pos;
-      for (size_t j = i; j < m; ++j) need += enc_len(buf[j]);
-      if (need > cap) return need;
-      fit = m - i;
-    }
-    for (const size_t end = std::min(m, i + fit); i < end; ++i)
-      pos += enc(buf[i], out + pos);
-  }
+  *run_bytes = runs;
+  if (o != out && pos <= cap) std::memcpy(out, o, (size_t)pos);
   return pos;
 }
 

@@ -14,6 +14,10 @@ the work counted at that boundary.  The tokenizer's sites and what each
                      text's runs of non-ASCII bytes, or the   to it
                      whole text (no span for ASCII)
       capcode    the capcode encoder                         bytes in
+        runs       the native encoder's call: the bytes it    input bytes
+                   copies 16 at a time between those that     copied as
+                   need a decision (no span for the Python    runs
+                   encoder)
       device     ops.scan.GpuTokenizer.tokenize              bytes in
         stage      plan, pinned buffer, host copy, upload    dispatches
         launch     graph load, replay (a capture too), clones groups
